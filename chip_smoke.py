@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`algodsp_tpu_torch`) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+  1. build   — compile every kernel of csrc/ with nvcc (all at once);
+  2. kernels — hold each CUDA kernel against its plain PyTorch version on
+               the card, at the main path's shapes and at edge shapes;
+  3. flagship — drive the flagship forward (8 ch x 48128 samples,
+               Butterworth -> A-weighting -> compressor -> 2^15-tap
+               reverb) through the port's entry points, check that it
+               went through every kernel, and hold it against the port's
+               plain path on the CPU;
+  4. timing  — CUDA-event means of the flagship forward, the folded
+               pipeline at 8 ch x 2^24, the cascade kernel alone at
+               512 ch x 2^16 x 15 sections, each kernel (device time
+               from CUDA-graph replay, and time as back-to-back calls)
+               beside its bound, its plain version and a library call
+               where one exists, and the reverb's two streaming paths.
+The line before the last is the card's name and power limit; the last is
+{"ok": true, "device": {...}}. Any failed check exits non-zero. There is
+no CPU fallback: without CUDA, or without the package beside this file,
+the script fails.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SR = 48000.0
+CHANNELS, N_FLAGSHIP = 8, 48128
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def snr_db(ref, test) -> float:
+    ref = np.asarray(ref, np.float64)
+    err = ref - np.asarray(test, np.float64)
+    p_err = float(np.sum(err * err))
+    if p_err == 0.0:
+        return math.inf
+    return 10.0 * math.log10(float(np.sum(ref * ref)) / p_err)
+
+
+def host(t):
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean time of one call as the caller sees it: CUDA events around
+    `reps` calls launched back to back. Where the host's work per call
+    (argument checks, allocation, launches) is longer than the card's,
+    this is the host's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one call: `reps` calls captured into one CUDA
+    graph, replayed between two CUDA events, so that no host work is in
+    the time. Warm-up runs on a side stream first, as capture needs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def biquad_work(c, n, s):
+    """Bytes (x in, y out, state in and out) and operations (5 multiplies
+    and 4 adds per section per sample, plus the gain)."""
+    return 8.0 * c * n + 32.0 * c * s, float(c * n * (9 * s + 1))
+
+
+def envelope_work(c, t):
+    """Bytes (x in, trajectory out) and operations (compare, subtract,
+    multiply, add per sample)."""
+    return 8.0 * c * t + 16.0 * c, 4.0 * c * t
+
+
+def fdl_work(c, n, b, p):
+    """Bytes (x in, y out, spectra in) and operations of the FDL: per frame
+    two real 2B-point FFTs at 2.5 n log2 n each and the complex MAC over
+    the taps that frame needs (8 per tap per bin)."""
+    nf = n // b
+    fft = 2 * 2.5 * (2 * b) * math.log2(2 * b)
+    taps = sum(min(p, f + 1) for f in range(nf))
+    flops = c * (nf * fft + 8.0 * (b + 1) * taps)
+    return 8.0 * c * n + 8.0 * p * (b + 1), flops
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on "
+              "the card", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "algodsp_tpu_torch")):
+        print("chip_smoke: the algodsp_tpu_torch package is not beside "
+              "this script", file=sys.stderr)
+        return 1
+    sys.path.insert(0, root)
+
+    from algodsp_tpu_torch import _build, convert
+    from algodsp_tpu_torch.filters import BiquadChain
+    from algodsp_tpu_torch.filters.design import butterworth_lp
+    from algodsp_tpu_torch.filters.weighting import WeightingType, weighting_chain
+    from algodsp_tpu_torch.ops import biquad_cascade as bqmod
+    from algodsp_tpu_torch.ops import envscan, fdlconv
+    from algodsp_tpu_torch.pipeline import (
+        FoldedPipeline, flagship_params, folded_params)
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False, \
+        "float32 matmuls must run in full float32"
+    dev = torch.device("cuda", 0)
+    gpu = card()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {gpu}")
+    rng = np.random.default_rng(0)
+
+    # -- 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.KERNEL_SOURCES:
+        _build.load(name)
+    print(f"build: {time.perf_counter() - t0:.2f} s for "
+          f"{', '.join(_build.KERNEL_SOURCES)} ({gpu})")
+
+    kernels = {
+        "biquad_cascade": {"route": "cuda",
+                           "source": "algodsp_tpu_torch/csrc/biquad_cascade.cu",
+                           "replaces": "algodsp_tpu/ops/pallas_kernels.py:152",
+                           "wrapper": bqmod.biquad_cascade, "errs": []},
+        "envelope": {"route": "cuda",
+                     "source": "algodsp_tpu_torch/csrc/envelope.cu",
+                     "replaces": "algodsp_tpu/ops/pallas_kernels.py:30",
+                     "wrapper": envscan.envelope_scan_kernel, "errs": []},
+        "fdl_conv": {"route": "cuda",
+                     "source": "algodsp_tpu_torch/csrc/fdlconv.cu",
+                     "replaces": "algodsp_tpu/ops/fdlconv.py:440 (K1) and "
+                                 "algodsp_tpu/ops/fdlconv.py:316 (K2)",
+                     "wrapper": fdlconv.fdl_conv, "errs": []},
+    }
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    # -- 2. kernel checks ----------------------------------------------------
+    cascade = BiquadChain(butterworth_lp(2000.0, 10, SR))
+    weighting = weighting_chain(WeightingType.A, SR)
+    # 20 sections take the kernel's generic (non-template) path
+    cascade20 = BiquadChain(np.concatenate([cascade.runtime_sos] * 4),
+                            condition=False)
+    for label, chain, c, n, with_state in [
+            ("cascade main", cascade, CHANNELS, N_FLAGSHIP, False),
+            ("weighting main", weighting, CHANNELS, N_FLAGSHIP, False),
+            ("cascade C=1 N=1000 state", cascade, 1, 1000, True),
+            ("weighting C=3 N=1000 state", weighting, 3, 1000, True),
+            ("cascade C=5 N=129 state", cascade, 5, 129, True),
+            ("cascade x4 C=2 N=3000 state", cascade20, 2, 3000, True)]:
+        sos = chain.runtime_sos
+        x = randn(c, n)
+        st = (0.1 * randn(c, sos.shape[0], 4)) if with_state else None
+        y, s_out = bqmod.biquad_cascade(x, sos, chain.gain, st)
+        y_p, s_p = bqmod.biquad_cascade_plain(x, sos, chain.gain, st)
+        y64, s64 = bqmod.biquad_cascade_plain(
+            x.double(), sos, chain.gain, None if st is None else st.double())
+        torch.cuda.synchronize()
+        snr_p, snr_64 = snr_db(host(y_p), host(y)), snr_db(host(y64), host(y))
+        snr_st = snr_db(host(s64), host(s_out))
+        err = float(torch.max(torch.abs(y - y_p)))
+        kernels["biquad_cascade"]["errs"].append(err)
+        print(f"check biquad_cascade {label}: S={sos.shape[0]} "
+              f"SNR vs plain f32 {snr_p:.1f} dB, vs plain f64 {snr_64:.1f} dB, "
+              f"state vs f64 {snr_st:.1f} dB, max|err| {err:.3e}")
+        assert snr_p >= 100 and snr_64 >= 120 and snr_st >= 100, label
+
+    comp_core = convert.compressor_from_config({"sample_rate": SR}).core
+    a_main = comp_core.attack_coeff
+    r_main = 1.0 - comp_core.release_coeff
+    for label, c, t, per_channel in [
+            ("main", CHANNELS, N_FLAGSHIP, False),
+            ("C=1 T=1000", 1, 1000, False),
+            ("C=3 T=1000 per-channel", 3, 1000, True)]:
+        x = torch.abs(randn(c, t))
+        env0 = torch.abs(randn(c)) if t != N_FLAGSHIP else torch.zeros(c, device=dev)
+        if per_channel:
+            att = torch.as_tensor(rng.uniform(0.01, 0.5, c).astype(np.float32), device=dev)
+            rel = torch.as_tensor(rng.uniform(0.001, 0.05, c).astype(np.float32), device=dev)
+        else:
+            att = torch.full((c,), a_main, device=dev)
+            rel = torch.full((c,), r_main, device=dev)
+        ef, tr = envscan.envelope_scan_kernel(x, env0, att, rel)
+        ef_p, tr_p = envscan.envelope_scan_plain(x, env0, att, rel)
+        torch.cuda.synchronize()
+        snr = snr_db(host(tr_p), host(tr))
+        err = float(torch.max(torch.abs(tr - tr_p)))
+        ef_err = float(torch.max(torch.abs(ef - ef_p)))
+        kernels["envelope"]["errs"].append(err)
+        print(f"check envelope {label}: SNR vs plain {snr:.1f} dB, "
+              f"max|err| {err:.3e}, env_final max|err| {ef_err:.3e}")
+        assert snr >= 100 and ef_err <= 1e-5 * (1.0 + float(torch.max(ef_p))), label
+
+    flag = flagship_params(seed=0)
+    ir = flag["reverb"]["kernel"]
+    for label, c, n, b, taps, quiet in [
+            ("main", CHANNELS, N_FLAGSHIP, 1024, ir.size, False),
+            ("C=1", 1, 8 * 1024, 1024, 3000, False),
+            ("C=3 quiet channel", 3, 6 * 1024, 1024, 5000, True),
+            ("B=8192 P=3", 2, 4 * 8192, 8192, 20000, False)]:
+        h = ir[:taps].astype(np.float64)
+        hspec = torch.as_tensor(fdlconv.kernel_spectra(h, b), device=dev)
+        x = randn(c, n)
+        if quiet:
+            x[0] *= 1e-6
+        y = fdlconv.fdl_conv(x, hspec, b)
+        y_p = fdlconv.fdl_conv_plain(x, hspec, b)
+        h64 = torch.as_tensor(h, device=dev)
+        size = 1 << (n + taps - 1).bit_length()
+        y64 = torch.fft.irfft(torch.fft.rfft(x.double(), size)
+                              * torch.fft.rfft(h64, size), size)[..., :n]
+        torch.cuda.synchronize()
+        y_h, y64_h = host(y), host(y64)
+        snr_ch = min(snr_db(y64_h[i], y_h[i]) for i in range(c))
+        snr_p = snr_db(host(y_p), y_h)
+        err = float(torch.max(torch.abs(y - y_p)))
+        kernels["fdl_conv"]["errs"].append(err)
+        print(f"check fdl_conv {label}: C={c} N={n} B={b} P={hspec.shape[0]} "
+              f"SNR vs plain f32 {snr_p:.1f} dB, worst channel vs f64 "
+              f"{snr_ch:.1f} dB, max|err| {err:.3e}")
+        assert snr_ch >= 110 and snr_p >= 110, label
+
+    # -- 3. flagship forward ---------------------------------------------------
+    pipe = convert.flagship_from_numpy(flag)
+    x_np = np.random.default_rng(1).standard_normal(
+        (CHANNELS, N_FLAGSHIP)).astype(np.float32)
+    x = torch.as_tensor(x_np, device=dev)
+    state = pipe.init_state(CHANNELS)
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    y, power = pipe.forward(x, state)
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for k in kernels.values():
+        k["launches"] = k["wrapper"].launches
+    print(f"flagship launches per forward: {json.dumps(launches)}")
+    assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1}, launches
+
+    pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
+    t0 = time.perf_counter()
+    y_cpu, power_cpu = pipe_cpu.forward(torch.as_tensor(x_np),
+                                        pipe_cpu.init_state(CHANNELS, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    y_h = host(y)
+    assert y_h.shape == (CHANNELS, N_FLAGSHIP) and np.all(np.isfinite(y_h))
+    snr = snr_db(y_cpu.numpy(), y_h)
+    p_rel = float(np.max(np.abs(host(power) - power_cpu.numpy())
+                         / np.abs(power_cpu.numpy())))
+    print(f"flagship 8x48128 vs plain CPU path: SNR {snr:.1f} dB, power "
+          f"max rel err {p_rel:.2e} (plain CPU path {cpu_s:.2f} s)")
+    assert snr >= 100 and p_rel < 1e-4
+
+    # -- 4. timing ---------------------------------------------------------------
+    fwd_ms = time_ms(torch, lambda: pipe.forward(x, state), reps=20)
+    print(f"time flagship forward 8x48128: {fwd_ms:.4f} ms mean of 20 "
+          f"({CHANNELS * N_FLAGSHIP / fwd_ms * 1e3:.4e} samples/s) ({gpu})")
+
+    fold = FoldedPipeline.from_numpy(folded_params(seed=0))
+    n_bench = 1 << 24
+    xb = randn(CHANNELS, n_bench)
+    bo = fold.reverb.bulk_block_order(n_bench)
+    fdlconv.fdl_conv.launches = 0
+    yb = fold.forward(xb)
+    torch.cuda.synchronize()
+    assert fdlconv.fdl_conv.launches == 1
+    hb = fold.reverb._hspec(bo, dev)
+    yb_p = fdlconv.fdl_conv_plain(xb, hb, 1 << bo)
+    torch.cuda.synchronize()
+    snr_b = snr_db(host(yb_p), host(yb))
+    print(f"check folded 8x2^24: taps={fold.reverb.kernel_len} B=2^{bo} "
+          f"P={hb.shape[0]} SNR vs plain {snr_b:.1f} dB, finite "
+          f"{bool(torch.isfinite(yb).all())}")
+    assert snr_b >= 110 and bool(torch.isfinite(yb).all())
+    del yb_p
+    fold_ms = time_ms(torch, lambda: fold.forward(xb), reps=5)
+    print(f"time folded pipeline 8x2^24: {fold_ms:.4f} ms mean of 5 "
+          f"({CHANNELS * n_bench / fold_ms * 1e3:.4e} samples/s) ({gpu})")
+
+    sos15 = np.concatenate([cascade.runtime_sos, weighting.runtime_sos,
+                            butterworth_lp(8000.0, 8, SR)])
+    assert sos15.shape[0] == 15 and not BiquadChain(sos15, condition=False).has_slow_poles
+    xw = randn(512, 1 << 16)
+    k3_ms = graph_ms(torch, lambda: bqmod.biquad_cascade(xw, sos15), reps=5)
+    k3_call = time_ms(torch, lambda: bqmod.biquad_cascade(xw, sos15), reps=5)
+    k3_plain = time_ms(torch, lambda: bqmod.biquad_cascade_plain(xw, sos15), reps=3)
+    k3_b, k3_by = bound(*biquad_work(512, 1 << 16, 15))
+    print(f"time biquad_cascade 512x2^16 S=15: kernel {k3_ms:.4f} ms (graph "
+          f"replay; {k3_call:.4f} ms as back-to-back calls), plain "
+          f"{k3_plain:.4f} ms, bound {k3_b:.4f} ms ({k3_by}) ({gpu})")
+
+    # per kernel, summed over its launches in one flagship forward
+    y1 = cascade.process(x)
+    y2 = weighting.process(y1)
+    src = torch.abs(y2)
+    zeros = torch.zeros(CHANNELS, device=dev)
+    att = torch.full((CHANNELS,), a_main, device=dev)
+    rel = torch.full((CHANNELS,), r_main, device=dev)
+    b_main = pipe.reverb.bulk_block_order(N_FLAGSHIP)
+    hs = pipe.reverb._hspec(b_main, dev)
+    B = 1 << b_main
+    kb = kernels["biquad_cascade"]
+    k3_calls = [lambda: bqmod.biquad_cascade(x, cascade.runtime_sos),
+                lambda: bqmod.biquad_cascade(y1, weighting.runtime_sos, weighting.gain)]
+    kb["ms"] = sum(graph_ms(torch, f, 20) for f in k3_calls)
+    kb["call_ms"] = sum(time_ms(torch, f, 20) for f in k3_calls)
+    kb["plain_ms"] = (
+        time_ms(torch, lambda: bqmod.biquad_cascade_plain(x, cascade.runtime_sos), 5)
+        + time_ms(torch, lambda: bqmod.biquad_cascade_plain(
+            y1, weighting.runtime_sos, weighting.gain), 5))
+    w1 = biquad_work(CHANNELS, N_FLAGSHIP, cascade.num_runtime_sections)
+    w2 = biquad_work(CHANNELS, N_FLAGSHIP, weighting.num_runtime_sections)
+    kb["bound_ms"], kb["bound_by"] = bound(w1[0] + w2[0], w1[1] + w2[1])
+    kb["library_ms"] = None
+    ke = kernels["envelope"]
+    k4_call = lambda: envscan.envelope_scan_kernel(src, zeros, att, rel)
+    ke["ms"] = graph_ms(torch, k4_call, 20)
+    ke["call_ms"] = time_ms(torch, k4_call, 20)
+    ke["plain_ms"] = time_ms(
+        torch, lambda: envscan.envelope_scan_plain(src, zeros, att, rel), 1, warmup=0)
+    ke["bound_ms"], ke["bound_by"] = bound(*envelope_work(CHANNELS, N_FLAGSHIP))
+    ke["library_ms"] = None
+    kf = kernels["fdl_conv"]
+    k1_call = lambda: fdlconv.fdl_conv(src, hs, B)
+    kf["ms"] = graph_ms(torch, k1_call, 20)
+    kf["call_ms"] = time_ms(torch, k1_call, 20)
+    kf["plain_ms"] = time_ms(torch, lambda: fdlconv.fdl_conv_plain(src, hs, B), 20)
+    kf["bound_ms"], kf["bound_by"] = bound(
+        *fdl_work(CHANNELS, N_FLAGSHIP, B, hs.shape[0]))
+    h_t = torch.as_tensor(ir, device=dev)
+    size = 1 << (N_FLAGSHIP + ir.size - 1).bit_length()
+    kf["library_ms"] = graph_ms(torch, lambda: torch.fft.irfft(
+        torch.fft.rfft(src, size) * torch.fft.rfft(h_t, size), size)[..., :N_FLAGSHIP], 20)
+    for name, k in kernels.items():
+        print(f"time {name} per flagship forward: kernel {k['ms']:.4f} ms "
+              f"(graph replay; {k['call_ms']:.4f} ms as back-to-back calls) "
+              f"x{k['launches']} wrapper calls, bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}), plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']} ms ({gpu})")
+
+    # streaming reverb: time both continuation paths of process_stream
+    # (each call as the caller sees it), at the flagship IR and at a
+    # quarter of it, beside the path the dispatch picks
+    for taps in (ir.size, ir.size // 4):
+        rv = convert.convolver_from_numpy(ir[:taps], 10)
+        span = rv.num_parts * rv.block
+        for rows in (8, 64):
+            st_w, _ = rv._process_stream_depthwise(rv.init_state((rows,)),
+                                                   randn(rows, span))
+            for n in (span // 4, span, 4 * span):
+                xs = randn(rows, n)
+                if rows == 8 and n == span:
+                    st_a, y_a = rv._process_stream_depthwise(st_w, xs)
+                    st_b, y_b = rv._process_stream_rehistory(st_w, xs)
+                    torch.cuda.synchronize()
+                    snr_y = snr_db(host(y_a), host(y_b))
+                    snr_s = snr_db(host(st_a["fdl"]), host(st_b["fdl"]))
+                    print(f"check stream paths P={rv.num_parts} {rows}x{n}: "
+                          f"output SNR {snr_y:.1f} dB, state SNR {snr_s:.1f} dB")
+                    assert snr_y >= 100 and snr_s >= 100
+                t_d = time_ms(torch, lambda: rv._process_stream_depthwise(st_w, xs), 5)
+                t_r = time_ms(torch, lambda: rv._process_stream_rehistory(st_w, xs), 5)
+                pick = "rehistory" if rv.stream_rehistory(n) else "depthwise"
+                print(f"time process_stream {rows} x {n} (P={rv.num_parts}, "
+                      f"B={rv.block}): depthwise {t_d:.4f} ms, rehistory "
+                      f"{t_r:.4f} ms, dispatch picks {pick} ({gpu})")
+
+    # -- 5. kernel list ----------------------------------------------------------
+    line = {"kernels": [{
+        "name": name, "route": k["route"], "source": k["source"],
+        "replaces": k["replaces"], "launches": k["launches"],
+        "max_abs_err": max(k["errs"]), "ms": k["ms"], "call_ms": k["call_ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"], "checked": True}
+        for name, k in kernels.items()]}
+    print(json.dumps(line))
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
