@@ -11,10 +11,12 @@ import numpy as np
 import torch
 
 from algodsp_tpu_torch._device import resolve_device
+from algodsp_tpu_torch.chain.chain import Chain
 from algodsp_tpu_torch.conv.partitioned import PartitionedConvolver
 from algodsp_tpu_torch.effects.dynamics.core import DetectorMode, Topology
 from algodsp_tpu_torch.effects.dynamics.processors import Compressor
 from algodsp_tpu_torch.filters.biquad import BiquadChain
+from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
 from algodsp_tpu_torch.pipeline import FlagshipPipeline
 
 _COMPRESSOR_FIELDS = (
@@ -51,6 +53,26 @@ def compressor_from_config(cfg: dict) -> Compressor:
         kw["detector_mode"] = DetectorMode(
             getattr(kw["detector_mode"], "value", kw["detector_mode"]))
     return Compressor(float(sample_rate), **kw)
+
+
+def moog_from_config(cfg: dict) -> MoogFilter:
+    """A MoogFilter from its constructor's fields (`sample_rate`,
+    `variant`, `cutoff_hz`, ...); `variant` may be a member of either
+    package's MoogVariant or its string value."""
+    kw = dict(cfg)
+    sample_rate = kw.pop("sample_rate")
+    if "variant" in kw:
+        kw["variant"] = MoogVariant(getattr(kw["variant"], "value", kw["variant"]))
+    return MoogFilter(float(sample_rate), **kw)
+
+
+def chain_from_json(raw: str, sample_rate: float, *, block_size: int = 512,
+                    auto_fuse: bool = True) -> tuple[Chain, list]:
+    """A Chain with the graph `raw` loaded (the same JSON loads in both
+    packages); returns (chain, fusion report)."""
+    chain = Chain(sample_rate, block_size=block_size)
+    report = chain.load_graph(raw, auto_fuse=auto_fuse)
+    return chain, report
 
 
 def state_from_numpy(tree, device=None):

@@ -122,14 +122,16 @@ def peak(freq: float, gain_db: float, q: float, sample_rate: float,
     """Peaking EQ. Plain RBJ by default (`design.go:122-142`); passing
     dc/nyquist/band-edge gains activates the Orfanidis prescribed-gain
     design with silent fallback to RBJ when constraints can't be met
-    (`design.go:112-120`, `peak_orfanidis.go`).
-
-    The Orfanidis designer is not ported yet (ROADMAP.md), so passing
-    any of those gains raises NotImplementedError."""
+    (`design.go:112-120`, `peak_orfanidis.go`)."""
     if dc_gain_db is not None or nyquist_gain_db is not None \
             or band_edge_gain_db is not None:
-        raise NotImplementedError(
-            "peak: the Orfanidis prescribed-gain design is not ported yet")
+        from algodsp_tpu_torch.filters.design.orfanidis import peak_orfanidis
+        out = peak_orfanidis(freq, gain_db, q, sample_rate,
+                             dc_gain_db=dc_gain_db,
+                             nyquist_gain_db=nyquist_gain_db,
+                             band_edge_gain_db=band_edge_gain_db)
+        if out is not None:
+            return out
     w0 = _w0(freq, sample_rate)
     if w0 is None:
         return _ZERO.copy()

@@ -111,3 +111,16 @@ def fdl_conv(x, hspec, B: int):
 
 
 fdl_conv.launches = 0
+
+
+def pick_block(m: int, n: int) -> int | None:
+    """Partition size for a one-shot FDL convolution of an m-tap kernel
+    over n samples (counterpart of `algodsp_tpu/ops/fdlconv.py::
+    pick_block`, sized to this kernel's limits instead of the v5e's
+    VMEM): the kernel's length rounded up to a power of two, at most
+    MAX_BLOCK (a 2B-point complex frame must fit in shared memory); None
+    when that is below 2^10 or an input is empty."""
+    if n < 1 or m < 1:
+        return None
+    B = 1 << (min(m, MAX_BLOCK) - 1).bit_length()
+    return B if B >= 1024 else None

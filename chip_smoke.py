@@ -12,12 +12,23 @@ Phases, each printing its own lines:
                reverb) through the port's entry points, check that it
                went through every kernel, and hold it against the port's
                plain path on the CPU;
-  4. timing  — CUDA-event means of the flagship forward, the folded
+  4. chain   — load the effect-chain graph CHAIN_GRAPH (Butterworth
+               low-pass -> Moog ladder -> compressor -> peak EQ + reverb
+               fused into one FIR), stream 64 ch x 94 blocks of 512
+               through `Chain.process_blocks`, check each block went
+               through the cascade, Moog, envelope and FDL kernels once,
+               and hold 8 blocks against the port's plain CPU path;
+  5. moog    — stream a ZDF `MoogFilter` directly (64 ch x 94 blocks;
+               no chain node builds one) through the ZDF kernel, held
+               against the plain CPU path;
+  6. timing  — CUDA-event means of the flagship forward, the folded
                pipeline at 8 ch x 2^24, the cascade kernel alone at
                512 ch x 2^16 x 15 sections, each kernel (device time
                from CUDA-graph replay, and time as back-to-back calls)
                beside its bound, its plain version and a library call
-               where one exists, and the reverb's two streaming paths.
+               where one exists, the reverb's two streaming paths, the
+               chain's time per block and real-time factor, and the two
+               Moog kernels at 128 ch x 2^16.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -37,6 +48,43 @@ SR = 48000.0
 CHANNELS, N_FLAGSHIP = 8, 48128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+CHAIN_CH, CHAIN_BLOCK, CHAIN_BLOCKS = 64, 512, 94
+
+# The effect chain at full width: 64 ch at 48 kHz in the chain's default
+# 512-sample blocks. The peak EQ is an RBJ one: the elliptic family reads
+# `q` as a bandwidth in Hz (at most 8 after the registry's clamp), whose
+# poles sit so close to the unit circle that the EQ + reverb run would
+# pass the fusion pass's kernel-length limit and stay unfused.
+CHAIN_GRAPH = {
+    "nodes": [
+        {"id": "lp", "type": "filter-lowpass",
+         "params": {"family": "butterworth", "freq": 12000, "order": 4}},
+        {"id": "moog", "type": "filter-moog",
+         "params": {"freq": 1200, "q": 2.0, "gain": 6, "order": 8}},
+        {"id": "comp", "type": "dyn-compressor",
+         "params": {"thresholdDB": -18, "ratio": 4}},
+        {"id": "eq", "type": "filter-peak",
+         "params": {"family": "rbj", "freq": 3000, "gain": -4, "q": 1.0}},
+        {"id": "verb", "type": "reverb-conv",
+         "params": {"irSeconds": 0.5, "seed": 7, "wet": 0.3, "dry": 0.9}}],
+    "connections": [{"from": "_input", "to": "lp"}, {"from": "lp", "to": "moog"},
+                    {"from": "moog", "to": "comp"}, {"from": "comp", "to": "eq"},
+                    {"from": "eq", "to": "verb"},
+                    {"from": "verb", "to": "_output"}]}
+
+# Operations per ladder step, counting each tanh as one operation (so the
+# operation bound is a floor): the classic step is the feedback input
+# (3), five scaled tanh (10), four stage updates (12) and the output (1);
+# Huovilainen adds three tanh with their scaling (6) and the half-sample
+# feedback (2). A ZDF step is four scaled tanh of the old stages (8), the
+# input (1), newton_iters Newton iterations of one ladder pass (37) and
+# its update (5), a last ladder pass (37), four stage updates (8) and the
+# output (1).
+MOOG_STEP_OPS = {"classic": 26, "huovilainen": 34}
+
+
+def zdf_step_ops(newton_iters: int) -> int:
+    return 8 + 1 + 42 * newton_iters + 37 + 8 + 1
 
 
 def card() -> str:
@@ -132,6 +180,23 @@ def fdl_work(c, n, b, p):
     return 8.0 * c * n + 8.0 * p * (b + 1), flops
 
 
+def moog_work(c, t, ops_per_step):
+    """Bytes (x in, y out, state8 in and out) and operations of a Moog
+    ladder over (C, T) float32."""
+    return 8.0 * c * t + 64.0 * c, float(ops_per_step) * c * t
+
+
+def moog_call(moog_ops, mf, x, st8, plain=False):
+    """The K5 or K6 wrapper (or its plain version) for MoogFilter `mf`."""
+    p = mf.kernel_params()
+    if mf.variant.value == "zdf":
+        fn = moog_ops.moog_zdf_plain if plain else moog_ops.moog_zdf
+        return fn(x, st8, p, newton_iters=mf.newton_iters)
+    fn = moog_ops.moog_ladder_plain if plain else moog_ops.moog_ladder
+    return fn(x, st8, p, fast_tanh="lightweight" in mf.variant.value,
+              huovilainen=mf.variant.value == "huovilainen")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -145,12 +210,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, root)
 
-    from algodsp_tpu_torch import _build, convert
+    from algodsp_tpu_torch import _build, convert, streaming
+    from algodsp_tpu_torch.chain import Chain
     from algodsp_tpu_torch.filters import BiquadChain
     from algodsp_tpu_torch.filters.design import butterworth_lp
+    from algodsp_tpu_torch.filters.fir import FIRFilter
+    from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
     from algodsp_tpu_torch.filters.weighting import WeightingType, weighting_chain
     from algodsp_tpu_torch.ops import biquad_cascade as bqmod
     from algodsp_tpu_torch.ops import envscan, fdlconv
+    from algodsp_tpu_torch.ops import moog as moog_ops
     from algodsp_tpu_torch.pipeline import (
         FoldedPipeline, flagship_params, folded_params)
 
@@ -183,6 +252,14 @@ def main() -> int:
                      "replaces": "algodsp_tpu/ops/fdlconv.py:440 (K1) and "
                                  "algodsp_tpu/ops/fdlconv.py:316 (K2)",
                      "wrapper": fdlconv.fdl_conv, "errs": []},
+        "moog_ladder": {"route": "cuda",
+                        "source": "algodsp_tpu_torch/csrc/moog.cu",
+                        "replaces": "algodsp_tpu/ops/pallas_kernels.py:370",
+                        "wrapper": moog_ops.moog_ladder, "errs": []},
+        "moog_zdf": {"route": "cuda",
+                     "source": "algodsp_tpu_torch/csrc/moog.cu",
+                     "replaces": "algodsp_tpu/ops/pallas_kernels.py:478",
+                     "wrapper": moog_ops.moog_zdf, "errs": []},
     }
 
     def randn(*shape):
@@ -274,6 +351,113 @@ def main() -> int:
               f"{snr_ch:.1f} dB, max|err| {err:.3e}")
         assert snr_ch >= 110 and snr_p >= 110, label
 
+    # Moog ladders: every variant against its plain version, at the
+    # chain's main shape (64 x 2048, a 512-sample block at
+    # oversampling 4, zero-stuffed as MoogFilter.process does), C = 1
+    # (T = 1024),
+    # C = 3 with T = 1000 from a nonzero state, and the state-clip case
+    # of tests/test_pallas.py (DC of 100, Vt = 20). Bars: atol 1e-5 on y
+    # and the state (1e-4 in the clip case), the JAX package's bars
+    # against its scan, and SNR >= 100 dB. The plain versions run on host
+    # copies of the same inputs: one Python step per sample costs ~20 us
+    # per tensor op on the card and a few on the host.
+    def stuffed(c, n, os=4, amp=0.3):
+        xs = torch.zeros(c, n * os, device=dev)
+        xs[:, ::os] = os * amp * randn(c, n)
+        return xs
+
+    moog_cases = [
+        ("main", dict(cutoff_hz=2000.0, resonance=2.0, thermal_voltage=0.5,
+                      oversampling=4), lambda: stuffed(CHAIN_CH, CHAIN_BLOCK),
+         False, 1e-5),
+        ("C=1", dict(cutoff_hz=2000.0, resonance=2.0, thermal_voltage=0.5,
+                     oversampling=4), lambda: stuffed(1, CHAIN_BLOCK // 2),
+         False, 1e-5),
+        ("C=3 T=1000 state", dict(cutoff_hz=2000.0, resonance=2.0,
+                                  thermal_voltage=0.5),
+         lambda: 0.3 * randn(3, 1000), True, 1e-5),
+        ("clip", dict(cutoff_hz=8000.0, resonance=0.5, drive=1.0,
+                      thermal_voltage=20.0),
+         lambda: 100.0 + randn(2, 1024), False, 1e-4)]
+    for variant, iters in [("classic", 4), ("classic_lightweight", 4),
+                           ("improved_classic", 4),
+                           ("improved_classic_lightweight", 4),
+                           ("huovilainen", 4), ("zdf", 1), ("zdf", 4),
+                           ("zdf", 8)]:
+        name = "moog_zdf" if variant == "zdf" else "moog_ladder"
+        for label, kw, make_x, with_state, atol in moog_cases:
+            mf = MoogFilter(SR, variant=MoogVariant(variant),
+                            newton_iters=iters, **kw)
+            xm = make_x()
+            st8 = (0.2 * randn(8, xm.shape[0]) if with_state
+                   else torch.zeros(8, xm.shape[0], device=dev))
+            s_k, y_k = moog_call(moog_ops, mf, xm, st8)
+            s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
+            y_k, s_k = y_k.cpu(), s_k.cpu()
+            err = float(torch.max(torch.abs(y_k - y_p)))
+            s_err = float(torch.max(torch.abs(s_k - s_p)))
+            snr = snr_db(y_p.numpy(), y_k.numpy())
+            kernels[name]["errs"].append(err)
+            print(f"check {name} {variant} (newton {iters}) {label}: "
+                  f"C={xm.shape[0]} T={xm.shape[1]} max|err| y {err:.3e} "
+                  f"state {s_err:.3e}, SNR vs plain {snr:.1f} dB")
+            assert err <= atol and s_err <= atol and snr >= 100, \
+                (name, variant, label)
+    # one float64 call of each kernel: the same template in double; FMA
+    # contraction is all that separates it from the plain version
+    for variant in ("huovilainen", "zdf"):
+        name = "moog_zdf" if variant == "zdf" else "moog_ladder"
+        mf = MoogFilter(SR, variant=MoogVariant(variant), cutoff_hz=2000.0,
+                        resonance=2.0, thermal_voltage=0.5, oversampling=4)
+        xm = stuffed(CHAIN_CH, CHAIN_BLOCK).double()
+        st8 = torch.zeros(8, CHAIN_CH, dtype=torch.float64, device=dev)
+        s_k, y_k = moog_call(moog_ops, mf, xm, st8)
+        s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
+        err = float(torch.max(torch.abs(y_k.cpu() - y_p)))
+        s_err = float(torch.max(torch.abs(s_k.cpu() - s_p)))
+        print(f"check {name} {variant} float64 main: max|err| y {err:.3e} "
+              f"state {s_err:.3e}")
+        assert y_k.dtype == torch.float64 and err <= 1e-9 and s_err <= 1e-9
+    # resonance 4 self-oscillates: rounding differences may grow along
+    # time, so the float32 kernel is only required to stay finite; its
+    # distance from the float64 plain version is printed (on an H100:
+    # 122.4 dB for K5, 105.1 dB for K6, at most 2.0e-6)
+    for variant in ("huovilainen", "zdf"):
+        name = "moog_zdf" if variant == "zdf" else "moog_ladder"
+        mf = MoogFilter(SR, variant=MoogVariant(variant), cutoff_hz=2000.0,
+                        resonance=4.0, thermal_voltage=0.5)
+        xm = 0.1 * randn(8, 4096)
+        st8 = torch.zeros(8, 8, device=dev)
+        _, y_k = moog_call(moog_ops, mf, xm, st8)
+        _, y_64 = moog_call(moog_ops, mf, xm.cpu().double(),
+                            st8.cpu().double(), plain=True)
+        y_k = y_k.cpu()
+        finite = bool(torch.isfinite(y_k).all())
+        print(f"check {name} {variant} resonance 4 (self-oscillating) 8x4096: "
+              f"finite {finite}, SNR vs plain f64 "
+              f"{snr_db(y_64.numpy(), y_k.numpy()):.1f} dB, max|err| "
+              f"{float(torch.max(torch.abs(y_k.double() - y_64))):.3e}")
+        assert finite
+
+    # The FIR's direct path (<= 64 taps) is elementwise float32 on the
+    # card; a cuDNN conv1d in TF32 (about three decimal digits) would fall
+    # far below the bar here. Above 4096 taps its fftconvolve runs the FDL
+    # kernel.
+    xf = randn(CHAIN_CH, 4 * CHAIN_BLOCK)
+    for taps in (48, 24040):
+        h = rng.standard_normal(taps) * np.exp(-np.arange(taps) / 2000.0)
+        fdlconv.fdl_conv.launches = 0
+        y_f = FIRFilter(h).process(xf)
+        launched = fdlconv.fdl_conv.launches
+        y_64 = FIRFilter(h).process(xf.double().cpu())
+        snr = min(snr_db(y_64[i].numpy(), host(y_f[i]))
+                  for i in range(CHAIN_CH))
+        print(f"check FIR {taps} taps {CHAIN_CH}x{4 * CHAIN_BLOCK} on the card: "
+              f"worst channel vs plain f64 {snr:.1f} dB, FDL launches "
+              f"{launched}")
+        assert snr >= (120 if taps <= 64 else 110), taps
+        assert launched == (1 if taps > 4096 else 0), taps
+
     # -- 3. flagship forward ---------------------------------------------------
     pipe = convert.flagship_from_numpy(flag)
     x_np = np.random.default_rng(1).standard_normal(
@@ -286,9 +470,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
-        k["launches"] = k["wrapper"].launches
+        k["by_path"] = {"flagship": k["wrapper"].launches}
     print(f"flagship launches per forward: {json.dumps(launches)}")
-    assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1}, launches
+    assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1,
+                        "moog_ladder": 0, "moog_zdf": 0}, launches
 
     pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
     t0 = time.perf_counter()
@@ -304,7 +489,75 @@ def main() -> int:
           f"max rel err {p_rel:.2e} (plain CPU path {cpu_s:.2f} s)")
     assert snr >= 100 and p_rel < 1e-4
 
-    # -- 4. timing ---------------------------------------------------------------
+    # -- 4. effect chain ----------------------------------------------------------
+    raw = json.dumps(CHAIN_GRAPH)
+    chain = Chain(SR)
+    report = chain.load_graph(raw)
+    print(f"chain fusion report: {report}")
+    assert [m for m, _ in report] == [["eq", "verb"]], report
+    n_chain = CHAIN_BLOCKS * CHAIN_BLOCK
+    xc_np = (0.5 * np.random.default_rng(2).standard_normal(
+        (CHAIN_CH, n_chain))).astype(np.float32)
+    xc = torch.as_tensor(xc_np, device=dev)
+    c_state0 = chain.init_state((CHAIN_CH,))
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    _, yc = chain.process_blocks(c_state0, xc)
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for k in kernels.values():
+        k["by_path"]["chain"] = k["wrapper"].launches
+    print(f"chain launches over {CHAIN_BLOCKS} blocks of {CHAIN_CH}x"
+          f"{CHAIN_BLOCK}: {json.dumps(launches)}")
+    assert launches == {"biquad_cascade": CHAIN_BLOCKS,
+                        "envelope": CHAIN_BLOCKS, "fdl_conv": CHAIN_BLOCKS,
+                        "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0}, launches
+    n8 = 8 * CHAIN_BLOCK
+    chain_cpu = Chain(SR)
+    chain_cpu.load_graph(raw)
+    t0 = time.perf_counter()
+    _, yc_cpu = chain_cpu.process_blocks(
+        chain_cpu.init_state((CHAIN_CH,), device="cpu"),
+        torch.as_tensor(xc_np[:, :n8]))
+    cpu_s = time.perf_counter() - t0
+    yc_h = host(yc)
+    assert yc_h.shape == (CHAIN_CH, n_chain) and np.all(np.isfinite(yc_h))
+    snr = snr_db(yc_cpu.numpy(), yc_h[:, :n8])
+    print(f"chain {CHAIN_CH}x{n8} (8 blocks) vs plain CPU path: SNR "
+          f"{snr:.1f} dB (plain CPU path {cpu_s:.2f} s)")
+    assert snr >= 100
+
+    # -- 5. ZDF Moog driven directly ---------------------------------------------
+    zdf = MoogFilter(SR, variant=MoogVariant.ZDF, cutoff_hz=1200.0,
+                     resonance=2.0, drive=2.0, newton_iters=4)
+    xz_np = (0.5 * np.random.default_rng(3).standard_normal(
+        (CHAIN_CH, n_chain))).astype(np.float32)
+    xz = torch.as_tensor(xz_np, device=dev)
+    z_state0 = zdf.init_state((CHAIN_CH,))
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    _, yz = streaming.scan_blocks(zdf.process, z_state0, xz,
+                                  block_size=CHAIN_BLOCK)
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for k in kernels.values():
+        k["by_path"]["moog_zdf_direct"] = k["wrapper"].launches
+        k["launches"] = sum(k["by_path"].values())
+    print(f"ZDF MoogFilter launches over {CHAIN_BLOCKS} blocks of "
+          f"{CHAIN_CH}x{CHAIN_BLOCK}: {json.dumps(launches)}")
+    assert launches == {"biquad_cascade": 0, "envelope": 0, "fdl_conv": 0,
+                        "moog_ladder": 0, "moog_zdf": CHAIN_BLOCKS}, launches
+    _, yz_cpu = streaming.scan_blocks(
+        zdf.process, zdf.init_state((CHAIN_CH,), device="cpu"),
+        torch.as_tensor(xz_np[:, :n8]), block_size=CHAIN_BLOCK)
+    yz_h = host(yz)
+    assert np.all(np.isfinite(yz_h))
+    snr = snr_db(yz_cpu.numpy(), yz_h[:, :n8])
+    print(f"ZDF MoogFilter {CHAIN_CH}x{n8} (8 blocks) vs plain CPU path: "
+          f"SNR {snr:.1f} dB")
+    assert snr >= 100
+
+    # -- 6. timing ---------------------------------------------------------------
     fwd_ms = time_ms(torch, lambda: pipe.forward(x, state), reps=20)
     print(f"time flagship forward 8x48128: {fwd_ms:.4f} ms mean of 20 "
           f"({CHANNELS * N_FLAGSHIP / fwd_ms * 1e3:.4e} samples/s) ({gpu})")
@@ -384,10 +637,13 @@ def main() -> int:
     size = 1 << (N_FLAGSHIP + ir.size - 1).bit_length()
     kf["library_ms"] = graph_ms(torch, lambda: torch.fft.irfft(
         torch.fft.rfft(src, size) * torch.fft.rfft(h_t, size), size)[..., :N_FLAGSHIP], 20)
-    for name, k in kernels.items():
+    for name in ("biquad_cascade", "envelope", "fdl_conv"):
+        k = kernels[name]
+        k["ms_at"] = "per flagship forward, 8 x 48128"
         print(f"time {name} per flagship forward: kernel {k['ms']:.4f} ms "
               f"(graph replay; {k['call_ms']:.4f} ms as back-to-back calls) "
-              f"x{k['launches']} wrapper calls, bound {k['bound_ms']:.6f} ms "
+              f"x{k['by_path']['flagship']} wrapper calls, bound "
+              f"{k['bound_ms']:.6f} ms "
               f"({k['bound_by']}), plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']} ms ({gpu})")
 
@@ -418,12 +674,103 @@ def main() -> int:
                       f"B={rv.block}): depthwise {t_d:.4f} ms, rehistory "
                       f"{t_r:.4f} ms, dispatch picks {pick} ({gpu})")
 
-    # -- 5. kernel list ----------------------------------------------------------
+    # the chain per block: wall time over the 94 blocks of
+    # process_blocks, and the device time of each kernel at the shape a
+    # chain block gives it
+    chain_ms = time_ms(torch, lambda: chain.process_blocks(c_state0, xc),
+                       reps=3, warmup=1) / CHAIN_BLOCKS
+    block_ms = CHAIN_BLOCK / SR * 1e3
+    print(f"time chain per block ({CHAIN_CH}x{CHAIN_BLOCK}, mean over 3 x "
+          f"{CHAIN_BLOCKS} blocks of process_blocks): {chain_ms:.4f} ms, "
+          f"real-time factor {block_ms / chain_ms:.2f} ({gpu})")
+    lp, moog_fx = chain.runtimes["lp"].effect, chain.runtimes["moog"].effect
+    fir = chain.runtimes["eq"].effect
+    xb1 = randn(CHAIN_CH, CHAIN_BLOCK)
+    ext = randn(CHAIN_CH, fir.num_taps - 1 + CHAIN_BLOCK)
+    Bc = fdlconv.pick_block(fir.num_taps, ext.shape[-1])
+    nc = -(-(ext.shape[-1] + fir.num_taps - 1) // Bc) * Bc
+    xfdl = torch.nn.functional.pad(ext, (0, nc - ext.shape[-1])).contiguous()
+    hc = fir._spectra(Bc, dev)
+    xm = stuffed(CHAIN_CH, CHAIN_BLOCK)
+    st8m = torch.zeros(8, CHAIN_CH, device=dev)
+    zc = torch.zeros(CHAIN_CH, device=dev)
+    comp_core = chain.runtimes["comp"].effect.core
+    ac = torch.full((CHAIN_CH,), comp_core.attack_coeff, device=dev)
+    rc = torch.full((CHAIN_CH,), 1.0 - comp_core.release_coeff, device=dev)
+    block_calls = {
+        "biquad_cascade": lambda: bqmod.biquad_cascade(xb1, lp.runtime_sos, lp.gain),
+        "moog_ladder": lambda: moog_call(moog_ops, moog_fx, xm, st8m),
+        "envelope": lambda: envscan.envelope_scan_kernel(torch.abs(xb1), zc, ac, rc),
+        "fdl_conv": lambda: fdlconv.fdl_conv(xfdl, hc, Bc)}
+    per_block = {name: graph_ms(torch, f, 20) for name, f in block_calls.items()}
+    print(f"time chain kernels per block (graph replay; FDL at B={Bc}, "
+          f"N={nc}, P={hc.shape[0]}): "
+          + ", ".join(f"{n} {t:.4f} ms" for n, t in per_block.items())
+          + f"; sum {sum(per_block.values()):.4f} ms of {chain_ms:.4f} ms "
+          f"wall ({gpu})")
+
+    # the Moog kernels at the shapes their paths give them: one chain
+    # block (K5, Huovilainen at oversampling 4) and one block of the
+    # direct ZDF path (K6, newton_iters 4)
+    km = kernels["moog_ladder"]
+    km["ms_at"] = f"per chain block, {CHAIN_CH} x {4 * CHAIN_BLOCK} Huovilainen"
+    km["ms"] = per_block["moog_ladder"]
+    km["call_ms"] = time_ms(torch, block_calls["moog_ladder"], 20)
+    km["plain_ms"] = time_ms(torch, lambda: moog_call(
+        moog_ops, moog_fx, xm, st8m, plain=True), 1, warmup=0)
+    km["bound_ms"], km["bound_by"] = bound(*moog_work(
+        CHAIN_CH, 4 * CHAIN_BLOCK, MOOG_STEP_OPS["huovilainen"]))
+    km["library_ms"] = None
+    kz = kernels["moog_zdf"]
+    kz["ms_at"] = f"per direct ZDF block, {CHAIN_CH} x {CHAIN_BLOCK} newton 4"
+    xz1 = 0.5 * randn(CHAIN_CH, CHAIN_BLOCK)
+    k6_call = lambda: moog_call(moog_ops, zdf, xz1, st8m)
+    kz["ms"] = graph_ms(torch, k6_call, 20)
+    kz["call_ms"] = time_ms(torch, k6_call, 20)
+    kz["plain_ms"] = time_ms(torch, lambda: moog_call(
+        moog_ops, zdf, xz1, st8m, plain=True), 1, warmup=0)
+    kz["bound_ms"], kz["bound_by"] = bound(*moog_work(
+        CHAIN_CH, CHAIN_BLOCK, zdf_step_ops(4)))
+    kz["library_ms"] = None
+    for name in ("moog_ladder", "moog_zdf"):
+        k = kernels[name]
+        print(f"time {name} {k['ms_at']}: kernel {k['ms']:.4f} ms (graph "
+              f"replay; {k['call_ms']:.4f} ms as back-to-back calls), bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}), plain "
+              f"{k['plain_ms']:.4f} ms, library none ({gpu})")
+
+    # K5 (classic) and K6 at the JAX package's benchmark shape, 128 x 2^16
+    # (benchmarks/run_benchmarks.py:396-405); the plain versions on the
+    # card at 128 x 256, one Python step per sample
+    cm, tm = 128, 1 << 16
+    xw = randn(cm, tm)
+    stw = torch.zeros(8, cm, device=dev)
+    for label, mf, ops in [
+            ("moog_ladder classic", MoogFilter(SR, cutoff_hz=2000.0,
+                                               resonance=0.5),
+             MOOG_STEP_OPS["classic"]),
+            ("moog_zdf newton 4", MoogFilter(
+                SR, variant=MoogVariant.ZDF, cutoff_hz=2000.0, resonance=0.5,
+                newton_iters=4), zdf_step_ops(4))]:
+        t_graph = graph_ms(torch, lambda: moog_call(moog_ops, mf, xw, stw), 3)
+        t_call = time_ms(torch, lambda: moog_call(moog_ops, mf, xw, stw), 3,
+                         warmup=1)
+        t_plain = time_ms(torch, lambda: moog_call(
+            moog_ops, mf, xw[:, :256], stw, plain=True), 1, warmup=0)
+        b_ms, b_by = bound(*moog_work(cm, tm, ops))
+        print(f"time {label} {cm}x{tm}: kernel {t_graph:.4f} ms (graph "
+              f"replay; {t_call:.4f} ms as back-to-back calls), "
+              f"{t_graph / tm * 1e6:.2f} ns per dependent step, bound "
+              f"{b_ms:.6f} ms ({b_by}; {ops} operations a step), plain "
+              f"{t_plain:.4f} ms at {cm}x256 ({gpu})")
+
+    # -- 7. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],
-        "max_abs_err": max(k["errs"]), "ms": k["ms"], "call_ms": k["call_ms"],
-        "plain_ms": k["plain_ms"],
+        "launches_by_path": k["by_path"],
+        "max_abs_err": max(k["errs"]), "ms": k["ms"], "ms_at": k["ms_at"],
+        "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": k["library_ms"], "checked": True}
         for name, k in kernels.items()]}

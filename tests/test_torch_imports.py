@@ -18,10 +18,12 @@ import torch
 
 import algodsp_tpu_torch
 from algodsp_tpu_torch import _build, convert
+from algodsp_tpu_torch.chain import Chain
 from algodsp_tpu_torch.conv import PartitionedConvolver
 from algodsp_tpu_torch.effects.dynamics import Compressor
 from algodsp_tpu_torch.filters import BiquadChain
-from algodsp_tpu_torch.ops import biquad_cascade as bq, envscan, fdlconv
+from algodsp_tpu_torch.filters.moog import MoogFilter
+from algodsp_tpu_torch.ops import biquad_cascade as bq, envscan, fdlconv, moog
 from algodsp_tpu_torch.pipeline import flagship_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,10 +78,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: BiquadChain([1.0, 0.0, 0.0, 0.0, 0.0]).init_state((2,)),
         lambda: Compressor(48000.0).init_state((2,)),
         lambda: PartitionedConvolver(np.ones(8), 2).init_state((2,)),
+        lambda: MoogFilter(48000.0).init_state((2,)),
+        lambda: Chain(48000.0).init_state((2,)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert MoogFilter(48000.0).init_state((2,), device="cpu")["stage"].shape == (2, 4)
+    assert Chain(48000.0).init_state((2,), device="cpu") == {}
     assert algodsp_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -112,6 +118,8 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(bq, "biquad_cascade_plain", plain_called)
     monkeypatch.setattr(envscan, "envelope_scan_plain", plain_called)
     monkeypatch.setattr(fdlconv, "fdl_conv_plain", plain_called)
+    monkeypatch.setattr(moog, "moog_ladder_plain", plain_called)
+    monkeypatch.setattr(moog, "moog_zdf_plain", plain_called)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
     with pytest.raises(RuntimeError, match="no kernel library biquad_cascade"):
         bq.biquad_cascade(_FakeCuda(2, 256), sos)
@@ -119,8 +127,14 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
         envscan.envelope_scan_kernel(_FakeCuda(2, 256), None, None, None)
     with pytest.raises(RuntimeError, match="no kernel library fdlconv"):
         fdlconv.fdl_conv(_FakeCuda(2, 256), _FakeCuda(3, 129, 2), 128)
+    params = [0.1, 0.2, 0.5, 1.0, 1.0]
+    with pytest.raises(RuntimeError, match="no kernel library moog"):
+        moog.moog_ladder(_FakeCuda(2, 256), _FakeCuda(8, 2), params,
+                         huovilainen=True)
+    with pytest.raises(RuntimeError, match="no kernel library moog"):
+        moog.moog_zdf(_FakeCuda(2, 256), _FakeCuda(8, 2), params)
     for wrapper in (bq.biquad_cascade, envscan.envelope_scan_kernel,
-                    fdlconv.fdl_conv):
+                    fdlconv.fdl_conv, moog.moog_ladder, moog.moog_zdf):
         assert isinstance(wrapper.launches, int)
 
 
@@ -135,6 +149,9 @@ def test_wrappers_refuse_other_devices():
                                      torch.zeros(2), torch.zeros(2))
     with pytest.raises(ValueError):
         fdlconv.fdl_conv(meta, torch.empty((3, 129, 2), device="meta"), 128)
+    for wrapper in (moog.moog_ladder, moog.moog_zdf):
+        with pytest.raises(ValueError):
+            wrapper(meta, torch.empty((8, 2), device="meta"), [1.0] * 5)
 
 
 def test_build_without_nvcc_raises(monkeypatch):
