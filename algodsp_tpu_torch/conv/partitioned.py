@@ -25,10 +25,10 @@ from algodsp_tpu_torch._device import resolve_device
 from algodsp_tpu_torch.core.numeric import next_pow2
 from algodsp_tpu_torch.ops.fdlconv import MAX_BLOCK, fdl_conv, kernel_spectra
 
-# Largest internal partition order for one-shot calls: a 2^14-point
-# complex frame (128 KB) is the largest that fits the kernel's shared
-# memory on Hopper, and larger partitions cut the MAC work (N*M/B per
-# channel) while the FFT work grows only with log2(2B).
+# Largest internal partition order for one-shot calls: the FDL kernel's
+# largest partition (`ops.fdlconv.MAX_BLOCK`), and larger partitions cut
+# the MAC work (N*M/B per channel) while the FFT work grows only with
+# log2(2B).
 BULK_MAX_ORDER = 13
 
 

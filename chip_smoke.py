@@ -6,7 +6,10 @@
 Phases, each printing its own lines:
   1. build   — compile every kernel of csrc/ with nvcc (all at once);
   2. kernels — hold each CUDA kernel against its plain PyTorch version on
-               the card, at the main path's shapes and at edge shapes;
+               the card, at the main path's shapes and at edge shapes
+               (the envelope on inputs that stress its selection
+               fixpoint, printing its sweep counters, and in float64;
+               the FDL at every B from 2 to 8192);
   3. flagship — drive the flagship forward (8 ch x 48128 samples,
                Butterworth -> A-weighting -> compressor -> 2^15-tap
                reverb) through the port's entry points, check that it
@@ -26,7 +29,8 @@ Phases, each printing its own lines:
                512 ch x 2^16 x 15 sections, each kernel (device time
                from CUDA-graph replay, and time as back-to-back calls)
                beside its bound, its plain version and a library call
-               where one exists, the reverb's two streaming paths, the
+               where one exists (the FDL's also at the chain's and the
+               folded shape), the reverb's two streaming paths, the
                chain's time per block and real-time factor, and the two
                Moog kernels at 128 ch x 2^16.
 The line before the last is the card's name and power limit; the last is
@@ -149,6 +153,26 @@ def graph_ms(torch, fn, reps: int) -> float:
     b.synchronize()
     del graph
     return a.elapsed_time(b) / reps
+
+
+def kernel_breakdown(torch, fn, reps: int, prefixes) -> dict:
+    """Device time per kernel, mean per call, from torch.profiler over
+    `reps` calls of fn: the kernels whose names start with one of
+    `prefixes`. Empty where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = e.key.split("(")[0].removeprefix("void ")
+        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if t and name.startswith(tuple(prefixes)):
+            out[name] = out.get(name, 0.0) + t / 1e3 / reps
+    return out
 
 
 def bound(nbytes: float, flops: float):
@@ -299,36 +323,112 @@ def main() -> int:
     comp_core = convert.compressor_from_config({"sample_rate": SR}).core
     a_main = comp_core.attack_coeff
     r_main = 1.0 - comp_core.release_coeff
-    for label, c, t, per_channel in [
-            ("main", CHANNELS, N_FLAGSHIP, False),
-            ("C=1 T=1000", 1, 1000, False),
-            ("C=3 T=1000 per-channel", 3, 1000, True)]:
-        x = torch.abs(randn(c, t))
-        env0 = torch.abs(randn(c)) if t != N_FLAGSHIP else torch.zeros(c, device=dev)
-        if per_channel:
-            att = torch.as_tensor(rng.uniform(0.01, 0.5, c).astype(np.float32), device=dev)
-            rel = torch.as_tensor(rng.uniform(0.001, 0.05, c).astype(np.float32), device=dev)
+    k4 = envscan.envelope_scan_kernel
+    n = np.arange(N_FLAGSHIP)
+
+    def env_case(c, x, env0, att, rel, dtype=np.float32):
+        per_ch = lambda v: torch.as_tensor(
+            np.broadcast_to(np.asarray(v, dtype), (c,)).copy(), device=dev)
+        return (torch.as_tensor(np.asarray(x, dtype), device=dev),
+                per_ch(env0), per_ch(att), per_ch(rel))
+
+    def hold(c, t):
+        # |noise| under a falling staircase: every chunk's maximum is
+        # below the one before it, so later chunks hold the first peak
+        steps = np.repeat(np.linspace(1.0, 0.05, -(-t // 47)), 47)[:t]
+        return np.abs(rng.standard_normal((c, t))) * steps
+
+    nan_x = np.abs(rng.standard_normal((2, N_FLAGSHIP)))
+    nan_x[0, 30000] = np.nan
+    ch64 = 64
+    env_cases = [
+        ("main", *env_case(CHANNELS, np.abs(rng.standard_normal(
+            (CHANNELS, N_FLAGSHIP))), 0.0, a_main, r_main)),
+        ("C=1 T=1000", *env_case(1, np.abs(rng.standard_normal((1, 1000))),
+                                 0.3, a_main, r_main)),
+        ("C=3 T=1000 per-channel", *env_case(
+            3, np.abs(rng.standard_normal((3, 1000))), rng.uniform(0, 1, 3),
+            rng.uniform(0.01, 0.5, 3), rng.uniform(0.001, 0.05, 3))),
+        ("slow release 1e-5 hovering", *env_case(
+            CHANNELS, 0.5 + 0.05 * np.sin(2 * np.pi * n / 480.0)
+            + 1e-3 * rng.standard_normal((CHANNELS, N_FLAGSHIP)), 0.5, 0.3,
+            1e-5)),
+        ("peak hold", *env_case(CHANNELS, hold(CHANNELS, N_FLAGSHIP), 0.0,
+                                1.0, 0.0)),
+        ("all ties", *env_case(CHANNELS, np.full((CHANNELS, N_FLAGSHIP), 0.25),
+                               0.25, a_main, r_main)),
+        ("40000 silent then noise", *env_case(
+            CHANNELS, np.where(n < 40000, 0.0, np.abs(rng.standard_normal(
+                (CHANNELS, N_FLAGSHIP)))), 0.0, a_main, r_main)),
+        ("NaN at 30000", *env_case(2, nan_x, 0.0, a_main, r_main)),
+        ("T=1", *env_case(CHANNELS, np.abs(rng.standard_normal((CHANNELS, 1))),
+                          0.2, a_main, r_main)),
+        ("T=47", *env_case(CHANNELS, np.abs(rng.standard_normal((CHANNELS, 47))),
+                           0.2, a_main, r_main)),
+        ("C=1 T=2^20", *env_case(1, np.abs(rng.standard_normal((1, 1 << 20))),
+                                 0.0, a_main, r_main)),
+        ("C=64 T=4096 per-channel", *env_case(
+            ch64, np.abs(rng.standard_normal((ch64, 4096))),
+            rng.uniform(0, 1, ch64), rng.uniform(0.01, 0.5, ch64),
+            rng.uniform(1e-5, 0.05, ch64))),
+        ("float64 main", *env_case(CHANNELS, np.abs(rng.standard_normal(
+            (CHANNELS, N_FLAGSHIP))), 0.0, a_main, r_main, np.float64)),
+        ("float64 peak hold", *env_case(CHANNELS, hold(CHANNELS, N_FLAGSHIP),
+                                        0.0, 1.0, 0.0, np.float64))]
+    for label, x, env0, att, rel in env_cases:
+        k4.reset_counts()
+        ef, tr = k4(x, env0, att, rel)
+        counts = k4.counts()
+        # the plain version on host copies of the same inputs: one Python
+        # step per sample costs ~20 us per tensor op on the card
+        ef_p, tr_p = envscan.envelope_scan_plain(x.cpu(), env0.cpu(),
+                                                 att.cpu(), rel.cpu())
+        tr, ef, tr_p, ef_p = (v.cpu().numpy() for v in (tr, ef, tr_p, ef_p))
+        nan_same = bool(np.array_equal(np.isnan(tr), np.isnan(tr_p))
+                        and np.array_equal(np.isnan(ef), np.isnan(ef_p)))
+        fin, ef_fin = ~np.isnan(tr_p), ~np.isnan(ef_p)
+        err = float(np.max(np.abs(tr - tr_p)[fin], initial=0.0))
+        ef_err = float(np.max(np.abs(ef - ef_p)[ef_fin], initial=0.0))
+        snr = snr_db(tr_p[fin], tr[fin])
+        print(f"check envelope {label}: {x.dtype} C={x.shape[0]} "
+              f"T={x.shape[1]} SNR vs plain {snr:.1f} dB, max|err| "
+              f"{err:.3e}, env_final max|err| {ef_err:.3e}, NaN where plain "
+              f"has NaN {nan_same}, sweeps {counts['sweeps']} over "
+              f"{counts['solves']} solves (most {counts['max_sweeps']}), "
+              f"exact walks {counts['exact_walks']}")
+        assert nan_same, label
+        if x.dtype == torch.float64:
+            scale = float(np.max(np.abs(tr_p[fin]), initial=0.0))
+            assert tr.dtype == np.float64 and err <= 1e-12 * scale, label
         else:
-            att = torch.full((c,), a_main, device=dev)
-            rel = torch.full((c,), r_main, device=dev)
-        ef, tr = envscan.envelope_scan_kernel(x, env0, att, rel)
-        ef_p, tr_p = envscan.envelope_scan_plain(x, env0, att, rel)
-        torch.cuda.synchronize()
-        snr = snr_db(host(tr_p), host(tr))
-        err = float(torch.max(torch.abs(tr - tr_p)))
-        ef_err = float(torch.max(torch.abs(ef - ef_p)))
+            ef_scale = 1.0 + float(np.max(np.abs(ef_p[ef_fin]), initial=0.0))
+            assert snr >= 100 and ef_err <= 1e-5 * ef_scale, label
+        assert counts["max_sweeps"] <= envscan.ENV_MAX_SWEEPS, label
+        if label.startswith("NaN"):
+            assert counts["exact_walks"] == 0, label
         kernels["envelope"]["errs"].append(err)
-        print(f"check envelope {label}: SNR vs plain {snr:.1f} dB, "
-              f"max|err| {err:.3e}, env_final max|err| {ef_err:.3e}")
-        assert snr >= 100 and ef_err <= 1e-5 * (1.0 + float(torch.max(ef_p))), label
+    # float64 through the entry point: a float64 compressor on the card
+    comp64 = convert.compressor_from_config({"sample_rate": SR})
+    x64 = randn(2, 4096).double()
+    _, y64 = comp64.process(comp64.init_state((2,), torch.float64), x64)
+    _, y64_p = comp64.process(comp64.init_state((2,), torch.float64, "cpu"),
+                              x64.cpu())
+    snr64 = snr_db(y64_p.numpy(), host(y64))
+    print(f"check float64 Compressor on the card 2x4096: {y64.dtype}, SNR vs "
+          f"plain CPU path {snr64:.1f} dB")
+    assert y64.dtype == torch.float64 and snr64 >= 200
 
     flag = flagship_params(seed=0)
     ir = flag["reverb"]["kernel"]
-    for label, c, n, b, taps, quiet in [
-            ("main", CHANNELS, N_FLAGSHIP, 1024, ir.size, False),
-            ("C=1", 1, 8 * 1024, 1024, 3000, False),
-            ("C=3 quiet channel", 3, 6 * 1024, 1024, 5000, True),
-            ("B=8192 P=3", 2, 4 * 8192, 8192, 20000, False)]:
+    fdl_cases = [
+        ("main", CHANNELS, N_FLAGSHIP, 1024, ir.size, False),
+        ("C=1", 1, 8 * 1024, 1024, 3000, False),
+        ("C=3 quiet channel", 3, 6 * 1024, 1024, 5000, True),
+        ("C=5 P > N/B", 5, 4 * 256, 256, 10 * 256, False),
+        ("B=8192 P=3", 2, 4 * 8192, 8192, 20000, False)]
+    fdl_cases += [(f"B={b} sweep", 3, 4 * b, b, max(1, 5 * b // 2), False)
+                  for b in (1 << e for e in range(1, 14))]
+    for label, c, n, b, taps, quiet in fdl_cases:
         h = ir[:taps].astype(np.float64)
         hspec = torch.as_tensor(fdlconv.kernel_spectra(h, b), device=dev)
         x = randn(c, n)
@@ -466,14 +566,18 @@ def main() -> int:
     state = pipe.init_state(CHANNELS)
     for k in kernels.values():
         k["wrapper"].launches = 0
+    k4.reset_counts()
     y, power = pipe.forward(x, state)
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
         k["by_path"] = {"flagship": k["wrapper"].launches}
-    print(f"flagship launches per forward: {json.dumps(launches)}")
+    env_counts = {"flagship": k4.counts()}
+    print(f"flagship launches per forward: {json.dumps(launches)}; envelope "
+          f"counts {json.dumps(env_counts['flagship'])}")
     assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1,
                         "moog_ladder": 0, "moog_zdf": 0}, launches
+    assert env_counts["flagship"]["exact_walks"] == 0
 
     pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
     t0 = time.perf_counter()
@@ -502,13 +606,17 @@ def main() -> int:
     c_state0 = chain.init_state((CHAIN_CH,))
     for k in kernels.values():
         k["wrapper"].launches = 0
+    k4.reset_counts()
     _, yc = chain.process_blocks(c_state0, xc)
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
         k["by_path"]["chain"] = k["wrapper"].launches
+    env_counts["chain"] = k4.counts()
     print(f"chain launches over {CHAIN_BLOCKS} blocks of {CHAIN_CH}x"
-          f"{CHAIN_BLOCK}: {json.dumps(launches)}")
+          f"{CHAIN_BLOCK}: {json.dumps(launches)}; envelope counts "
+          f"{json.dumps(env_counts['chain'])}")
+    assert env_counts["chain"]["exact_walks"] == 0
     assert launches == {"biquad_cascade": CHAIN_BLOCKS,
                         "envelope": CHAIN_BLOCKS, "fdl_conv": CHAIN_BLOCKS,
                         "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0}, launches
@@ -582,6 +690,20 @@ def main() -> int:
     fold_ms = time_ms(torch, lambda: fold.forward(xb), reps=5)
     print(f"time folded pipeline 8x2^24: {fold_ms:.4f} ms mean of 5 "
           f"({CHANNELS * n_bench / fold_ms * 1e3:.4e} samples/s) ({gpu})")
+    # K1 alone at the folded shape, beside one big-FFT convolution of the
+    # same input with the folded IR (the library call of the flagship's
+    # K1 timing below)
+    Bb = 1 << bo
+    fold_k1 = graph_ms(torch, lambda: fdlconv.fdl_conv(xb, hb, Bb), 3)
+    h_fold = torch.as_tensor(fold.reverb.kernel, dtype=torch.float32, device=dev)
+    size = 1 << (n_bench + h_fold.numel() - 1).bit_length()
+    fold_lib = graph_ms(torch, lambda: torch.fft.irfft(
+        torch.fft.rfft(xb, size) * torch.fft.rfft(h_fold, size),
+        size)[..., :n_bench], 3)
+    fold_b, fold_by = bound(*fdl_work(CHANNELS, n_bench, Bb, hb.shape[0]))
+    print(f"time fdl_conv folded 8x2^24 B={Bb} P={hb.shape[0]}: kernel "
+          f"{fold_k1:.4f} ms (graph replay), library {fold_lib:.4f} ms, "
+          f"bound {fold_b:.6f} ms ({fold_by}) ({gpu})")
 
     sos15 = np.concatenate([cascade.runtime_sos, weighting.runtime_sos,
                             butterworth_lp(8000.0, 8, SR)])
@@ -626,6 +748,10 @@ def main() -> int:
         torch, lambda: envscan.envelope_scan_plain(src, zeros, att, rel), 1, warmup=0)
     ke["bound_ms"], ke["bound_by"] = bound(*envelope_work(CHANNELS, N_FLAGSHIP))
     ke["library_ms"] = None
+    k4.reset_counts()
+    k4_call()
+    ke["counts_by_path"] = env_counts
+    print(f"envelope at the flagship shape: {json.dumps(k4.counts())}")
     kf = kernels["fdl_conv"]
     k1_call = lambda: fdlconv.fdl_conv(src, hs, B)
     kf["ms"] = graph_ms(torch, k1_call, 20)
@@ -703,6 +829,44 @@ def main() -> int:
         "envelope": lambda: envscan.envelope_scan_kernel(torch.abs(xb1), zc, ac, rc),
         "fdl_conv": lambda: fdlconv.fdl_conv(xfdl, hc, Bc)}
     per_block = {name: graph_ms(torch, f, 20) for name, f in block_calls.items()}
+    h_fir = torch.as_tensor(fir.coeffs, dtype=torch.float32, device=dev)
+    size = 1 << (nc + fir.num_taps - 1).bit_length()
+    chain_lib = graph_ms(torch, lambda: torch.fft.irfft(
+        torch.fft.rfft(xfdl, size) * torch.fft.rfft(h_fir, size),
+        size)[..., :nc], 20)
+    chain_b, chain_by = bound(*fdl_work(CHAIN_CH, nc, Bc, hc.shape[0]))
+    print(f"time fdl_conv chain block {CHAIN_CH}x{nc} B={Bc} P={hc.shape[0]}: "
+          f"kernel {per_block['fdl_conv']:.4f} ms (graph replay), library "
+          f"{chain_lib:.4f} ms, bound {chain_b:.6f} ms ({chain_by}) ({gpu})")
+    # the MAC's frame group G at the three shapes: with G = 1 a frame
+    # spectrum is read P times per output frame, as by a MAC fused with
+    # each frame's inverse FFT; with G, (G + P - 1) / G times
+    for label, (xg, hg, bg) in {"flagship": (src, hs, B),
+                                "chain": (xfdl, hc, Bc),
+                                "folded": (xb, hb, Bb)}.items():
+        planned = fdlconv.mac_plan(xg.shape[0], xg.shape[1] // bg, bg)[0]
+        by_g = {g: graph_ms(torch, lambda g=g: fdlconv._launch(xg, hg, bg, g),
+                            3 if label == "folded" else 20)
+                for g in (1, 2, 4, 8, 16)}
+        print(f"time fdl_conv by MAC group at the {label} shape (planned "
+              f"G={planned}): " + ", ".join(
+                  f"G={g} {t:.4f} ms" for g, t in by_g.items()) + f" ({gpu})")
+    # where each shape's time goes: the FDL's three launches, and the
+    # envelope at the flagship and chain shapes
+    for label, (call, reps, prefixes) in {
+            "fdl_conv flagship": (lambda: fdlconv.fdl_conv(src, hs, B), 20, ("fdl_",)),
+            "fdl_conv chain block": (lambda: fdlconv.fdl_conv(xfdl, hc, Bc), 20, ("fdl_",)),
+            "fdl_conv folded": (lambda: fdlconv.fdl_conv(xb, hb, Bb), 3, ("fdl_",)),
+            "envelope flagship": (k4_call, 20, ("envelope_",)),
+            "envelope chain block": (block_calls["envelope"], 20, ("envelope_",))}.items():
+        parts = kernel_breakdown(torch, call, reps, prefixes)
+        print(f"time {label} by launch (profiler, device ms per call): "
+              + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
+                 or "not measured") + f" ({gpu})")
+    kf["library_ms_by_shape"] = {"flagship": kf["library_ms"],
+                                 "chain": chain_lib, "folded": fold_lib}
+    kf["ms_by_shape"] = {"flagship": kf["ms"], "chain": per_block["fdl_conv"],
+                         "folded": fold_k1}
     print(f"time chain kernels per block (graph replay; FDL at B={Bc}, "
           f"N={nc}, P={hc.shape[0]}): "
           + ", ".join(f"{n} {t:.4f} ms" for n, t in per_block.items())
@@ -772,7 +936,9 @@ def main() -> int:
         "max_abs_err": max(k["errs"]), "ms": k["ms"], "ms_at": k["ms_at"],
         "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": k["library_ms"], "checked": True}
+        "library_ms": k["library_ms"], "checked": True,
+        **{key: k[key] for key in ("library_ms_by_shape", "ms_by_shape",
+                                   "counts_by_path") if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))
     print(gpu)

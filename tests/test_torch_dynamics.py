@@ -23,7 +23,8 @@ from algodsp_tpu_torch import convert
 from algodsp_tpu_torch.effects.dynamics import (
     Compressor, DetectorMode, Topology, block_metrics, compression_gain,
     downward_expansion_gain)
-from algodsp_tpu_torch.ops.envscan import envelope_scan, envelope_scan_plain
+from algodsp_tpu_torch.ops.envscan import (
+    ENV_MAX_SWEEPS, chunk_plan, envelope_scan, envelope_scan_plain)
 from tests.conftest import snr_db
 
 SR = 48000.0
@@ -104,6 +105,143 @@ def test_envelope_plain_per_channel_matches_jax():
                                      torch.tensor(0.3), torch.tensor(0.01))
     _, tr_js = j_envelope(jnp.asarray(x), jnp.asarray(env0), 0.3, 0.01)
     assert snr_db(np.asarray(tr_js), tr_s.numpy()) >= 100
+
+
+def _hard_envelope_cases(t, rng):
+    """Inputs that stress a time-split envelope, one per channel, with
+    per-channel (env0, attack, release): a slow release with x hovering
+    at the envelope's level, peak hold under chunk maxima that fall
+    across the signal, all ties, a long silence then noise, and a NaN."""
+    n = np.arange(t)
+    hover = 0.5 + 0.05 * np.sin(2 * np.pi * n / 480.0) + 1e-3 * rng.standard_normal(t)
+    steps = np.repeat(np.linspace(1.0, 0.05, -(-t // 47)), 47)[:t]
+    hold = np.abs(rng.standard_normal(t)) * steps
+    silent = np.where(n < t * 5 // 6, 0.0, np.abs(rng.standard_normal(t)))
+    nan = np.abs(rng.standard_normal(t))
+    nan[t // 2] = np.nan
+    x = np.stack([hover, hold, np.full(t, 0.25), silent, nan])
+    env0 = np.array([0.5, 0.0, 0.25, 0.0, 0.0])
+    att = np.array([0.3, 1.0, 0.1, 0.2, 0.1])
+    rel = np.array([1e-5, 0.0, 0.01, 1e-3, 0.01])
+    return x, env0, att, rel
+
+
+def _assert_trajectories_close(ref, test, bar_db=100.0):
+    """Same NaN positions, and >= bar_db SNR over the finite samples."""
+    ref, test = np.asarray(ref, np.float64), np.asarray(test, np.float64)
+    np.testing.assert_array_equal(np.isnan(ref), np.isnan(test))
+    fin = ~np.isnan(ref)
+    assert snr_db(ref[fin], test[fin]) >= bar_db
+
+
+def test_envelope_hard_inputs_match_jax():
+    """The port's envelope (its plain path on the CPU) against the JAX
+    package's `lax.scan` envelope on the inputs that stress the
+    kernel's selection fixpoint, float32 and float64."""
+    x, env0, att, rel = _hard_envelope_cases(4000, np.random.default_rng(4))
+    for dtype in (np.float32, np.float64):
+        args = [a.astype(dtype) for a in (x, env0, att, rel)]
+        ef_j, tr_j = j_envelope(*map(jnp.asarray, args))
+        ef_t, tr_t = envelope_scan(*map(torch.from_numpy, args))
+        assert tr_t.dtype == torch.from_numpy(args[0]).dtype
+        _assert_trajectories_close(tr_j, tr_t.numpy())
+        np.testing.assert_allclose(ef_t.numpy(), np.asarray(ef_j), rtol=1e-6)
+
+
+def _fixpoint_model(x, env0, att, rel, itemsize):
+    """numpy model of csrc/envelope.cu on one channel, with the
+    wrapper's own chunk plan: per segment, a seed pass (the true carry
+    for chunk 0, zero for the others), then sweeps (exclusive scan of the
+    chunks' float64 affine summaries -> carries -> re-run, re-deriving
+    the selection) until no selection flips, the cap, or the exact walk.
+    The sweeps also stop where every chunk's end state meets the next
+    chunk's carry within 4 ulps (flips on exact ties). Returns
+    (trajectory, sweeps per segment, exact walks)."""
+    dt = np.float32 if itemsize == 4 else np.float64
+    x = x.astype(dt)
+    a, r = dt(att), dt(rel)
+    seg, L, threads = chunk_plan(x.size, itemsize)
+    out = np.empty_like(x)
+    carry_seg, sweeps, walks = dt(env0), [], 0
+
+    def run(xs, pad, carry):        # xs (chunks, L); pad marks the tail
+        env = carry.copy()
+        bits = np.zeros(xs.shape, bool)
+        A, W = np.ones(len(env)), np.zeros(len(env))
+        traj = np.empty_like(xs)
+        for i in range(xs.shape[1]):
+            v = xs[:, i]
+            real = ~pad[:, i]
+            up = v > env
+            coef = np.where(up, a, r).astype(dt)
+            env = np.where(real, (env + coef * (v - env)).astype(dt), env)
+            bits[:, i] = up & real
+            m = 1.0 - coef.astype(np.float64)
+            W = np.where(real, m * W + coef * v.astype(np.float64), W)
+            A = np.where(real, A * m, A)
+            traj[:, i] = env
+        return traj, bits, A, W
+
+    for base in range(0, x.size, seg):
+        xs = x[base:base + seg]
+        chunks = -(-xs.size // L)
+        assert chunks <= threads
+        pad = np.arange(chunks * L).reshape(chunks, L) >= xs.size
+        xs = np.concatenate([xs, np.zeros(chunks * L - xs.size, dt)]).reshape(chunks, L)
+        carry = np.zeros(chunks, dt)
+        carry[0] = carry_seg
+        n_sweeps, walk = 0, False
+        if chunks > 1:
+            _, bits, A, W = run(xs, pad, carry)
+            while True:
+                if n_sweeps == ENV_MAX_SWEEPS:
+                    walk = True
+                    break
+                c = np.float64(carry_seg)
+                for j in range(chunks):
+                    carry[j] = c
+                    c = A[j] * c + W[j]
+                n_sweeps += 1
+                traj, new_bits, A, W = run(xs, pad, carry)
+                flipped = np.any(new_bits != bits)
+                bits = new_bits
+                # or every chunk's end meets the next carry within 4 ulps
+                e, c = traj[:-1, -1], carry[1:]
+                meets = ((e == c) | (np.isnan(e) & np.isnan(c))
+                         | (np.abs(e - c) <= 4 * np.finfo(dt).eps
+                            * np.maximum(np.abs(e), np.abs(c))))
+                if not flipped or meets.all():
+                    break
+        if walk:
+            walks += 1
+            _, traj = envelope_scan_plain(*map(torch.as_tensor, (
+                xs.reshape(-1), carry_seg, a, r)))
+            traj = traj.numpy()
+        else:
+            traj = run(xs, pad, carry)[0].reshape(-1)
+        n = min(seg, x.size - base)
+        out[base:base + n] = traj[:n]
+        carry_seg = out[base + n - 1]
+        sweeps.append(n_sweeps)
+    return out, sweeps, walks
+
+
+def test_envelope_fixpoint_model_converges():
+    """Rehearsal of the K4 kernel's algorithm before any chip run: the
+    numpy model with the wrapper's chunk plan meets the 100 dB bar
+    against the sequential float64 scan on the hard inputs, converging
+    within the cap, at the flagship length (1024 chunks of 47 samples),
+    over two float64 segments, and at short lengths."""
+    x, env0, att, rel = _hard_envelope_cases(48128, np.random.default_rng(5))
+    _, ref = envelope_scan_plain(torch.from_numpy(x), torch.from_numpy(env0),
+                                 torch.from_numpy(att), torch.from_numpy(rel))
+    # a prefix of the input has the prefix of the trajectory
+    for t, itemsize in ((48128, 4), (30000, 8), (1000, 4), (47, 4)):
+        for ch in range(x.shape[0]):
+            traj, sweeps, walks = _fixpoint_model(x[ch, :t], env0[ch], att[ch],
+                                                  rel[ch], itemsize)
+            assert walks == 0 and max(sweeps) <= ENV_MAX_SWEEPS, (t, ch, sweeps)
+            _assert_trajectories_close(ref[ch, :t].numpy(), traj)
 
 
 def test_gain_computers_match_jax():

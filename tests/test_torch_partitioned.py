@@ -18,6 +18,7 @@ from algodsp_tpu.filters import BiquadChain as JChain, design as jd
 from algodsp_tpu.filters.weighting import WeightingType as JW, weighting_chain as jwc
 from algodsp_tpu_torch import convert
 from algodsp_tpu_torch.conv import ltifold as tfold
+from algodsp_tpu_torch.ops import fdlconv as fdlmod
 from algodsp_tpu_torch.ops.fdlconv import fdl_conv, kernel_spectra
 from tests.conftest import snr_db
 
@@ -172,3 +173,67 @@ def test_fold_matches_jax():
     assert conv.kernel_len == k_t.size and conv.latency == B
     with pytest.raises(ValueError):
         tfold.iir_tail_length([[1.0, 0.0, 0.0, -1.0, 0.0]])
+
+
+def _plan_fft(z, tw, inverse):
+    """numpy model of csrc/fdlconv.cu's Stockham FFT with the wrapper's
+    radix plan and twiddle table: stage radices, butterfly -> thread
+    map, each stage's table offset and layout, output permutation."""
+    M = z.size
+    n16, rem, threads, _ = fdlmod.fft_plan(M)
+    radices = [16] * n16 + ([rem] if rem > 1 else [])
+    ns, off = 1, M
+    for r in radices:
+        j = np.arange(M // r)
+        assert (M // r) % threads == 0   # each thread owns (M/r)/T butterflies
+        jj = j % ns
+        i = np.arange(r)
+        v = z[j[:, None] + i[None, :] * (M // r)]
+        if ns > 1:
+            w = np.ones((M // r, r), complex)
+            w[:, 1:] = tw[off + (i[None, 1:] - 1) * ns + jj[:, None]]
+            off += (r - 1) * ns
+            v = v * (np.conj(w) if inverse else w)
+        v = np.fft.ifft(v, axis=1) * r if inverse else np.fft.fft(v, axis=1)
+        out = np.empty_like(z)
+        out[((j - jj) * r + jj)[:, None] + i[None, :] * ns] = v
+        z, ns = out, ns * r
+    assert off == tw.size
+    return z
+
+
+def test_fdl_launch_plan_every_block():
+    """The kernel's launch plan for every B from 2 to 8192: the radix
+    plan multiplies out to B, one FFT's threads and an FFT block fit
+    the card, its exchange buffer fits shared memory, the MAC grid
+    covers every frame and bin within the grid's limits; and the plan's
+    index maps give numpy's rfft of a 2B-sample frame (as the B-point
+    complex FFT of its sample pairs, then the split) and back."""
+    rng = np.random.default_rng(9)
+    for e in range(1, 14):
+        M = 1 << e
+        n16, rem, threads, fpb = fdlmod.fft_plan(M)
+        assert 16 ** n16 * rem == M and rem in (1, 2, 4, 8) or M < 16
+        assert threads == max(1, M // 16)
+        assert fpb * threads <= fdlmod.MAX_BLOCK // fdlmod.FFT_RADIX
+        assert fpb * (M + M // 16) * 8 <= 232448
+        for C, nf in ((1, 1), (8, 47), (64, 6), (8, 2048), (65535, 3)):
+            G, (groups, slices, ch) = fdlmod.mac_plan(C, nf, M)
+            assert G in (1, 2, 4, 8, 16) and groups * G >= nf > (groups - 1) * G
+            assert slices * fdlmod.MAC_THREADS >= M + 1 and ch == C
+            assert groups < 2 ** 31 and slices < 65536 and ch < 65536
+        tw = fdlmod.twiddle_table(M).astype(np.float64)
+        tw = tw[:, 0] + 1j * tw[:, 1]
+        x = rng.standard_normal(2 * M)
+        Z = _plan_fft(x[0::2] + 1j * x[1::2], tw, inverse=False)
+        k = np.arange(M + 1)
+        zk, zm = Z[k % M], np.conj(Z[(M - k) % M])
+        X = (zk + zm) / 2 + np.append(tw[:M], -1.0) * (-0.5j) * (zk - zm)
+        # the table is float32: the maps are right to its rounding
+        ref = np.fft.rfft(x)
+        assert np.linalg.norm(X - ref) <= 1e-6 * np.linalg.norm(ref)
+        n = np.arange(M)
+        Zi = (X[n] + np.conj(X[M - n])) + 1j * (X[n] - np.conj(X[M - n])) * np.conj(tw[:M])
+        z = _plan_fft(Zi, tw, inverse=True) / (2 * M)
+        x_back = np.stack([z.real, z.imag], -1).reshape(-1)
+        assert np.linalg.norm(x_back - x) <= 1e-6 * np.linalg.norm(x)
