@@ -7,10 +7,11 @@ S-section cascade with input gain over x (C, N) float32, threading the
 (C, S, 4) = [x1, x2, y1, y2] state in and out. Unlike the TPU kernel it
 returns the true carry for any N, not only for N % 128 == 0.
 
-The kernel cuts time into chunks of CHUNK samples, runs every chunk from
-zero state in parallel, carries the true state across chunks, and adds
-that state's response; `chunk_tables` computes the float64 tables this
-needs on the host.
+The kernel runs section by section over a segment of each channel in
+shared memory, one chunk of L samples per thread, and carries each
+section's two state values across the chunks by a block scan;
+`segment_plan` splits a channel, `section_tables` computes the float64
+per-section tables the kernel reads.
 
 `biquad_cascade` launches the kernel for CUDA tensors and uses
 `biquad_cascade_plain` (the blocked Toeplitz engine of `ops/linrec.py`)
@@ -28,51 +29,81 @@ import torch
 from algodsp_tpu_torch import _build
 from algodsp_tpu_torch.ops import linrec
 
-MAX_SECTIONS = 64  # per-thread state array bound in csrc/biquad_cascade.cu
-CHUNK = 256        # samples per thread in the kernel's zero-state pass
-# biquad_cascade_f32(x, y, coef, R, A, A_last, state_in, state_out, w, zin,
-#                    gain, C, N, S, T, stream)
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_float] + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p]
+MAX_SECTIONS = 64           # shared-memory state bound (csrc/biquad_cascade.cu)
+SMEM_BYTES = 196608         # float64 segment in shared memory (BQ_SMEM_BYTES)
+MAX_THREADS = 512           # one chunk per thread
+MIN_CHUNK = 3               # shorter chunks only deepen the scan
+MAX_CLUSTER = 8             # blocks per channel (BQ_MAX_CLUSTER)
+MIN_PART = 4096             # samples per block below which a cluster costs more
+# biquad_cascade_f32(x, y, tab, state_in, state_out, gain, C, n, S, seg, L,
+#                    threads, B, stream)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_longlong] \
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def segment_plan(n: int, channels: int, sms: int):
+    """The kernel's split of `channels` channels of n samples on a card of
+    `sms` SMs: (segment, chunk length L, threads, blocks per channel B).
+
+    A segment is at most SMEM_BYTES of float64 samples; each thread owns
+    L consecutive samples of it, L odd (distinct shared-memory banks), at
+    least MIN_CHUNK, and enough for at most MAX_THREADS chunks. Where the
+    channels leave SMs idle, a channel's segments run at once on a
+    cluster of B blocks (at most MAX_CLUSTER, each at least MIN_PART
+    samples; every segment but the last a whole number of chunks and the
+    last at least 2 samples); otherwise B = 1 and one block runs them in
+    order."""
+    def split(seg):
+        length = max(MIN_CHUNK, -(-seg // MAX_THREADS)) | 1
+        chunks = -(-seg // length)
+        return length, 32 * -(-chunks // 32)
+
+    cap = SMEM_BYTES // 8
+    blocks = min(MAX_CLUSTER, sms // channels, n // MIN_PART)
+    if blocks > 1:
+        length, threads = split(-(-n // blocks))
+        seg = -(-n // (blocks * length)) * length
+        if seg <= cap and (blocks - 1) * seg + 2 <= n:
+            return seg, length, threads, blocks
+    seg = -(-n // -(-n // cap))
+    return (seg, *split(seg), 1)
+
+
+def section_tables(sos, length: int, seg: int) -> np.ndarray:
+    """(S, 153) float64 per section, the kernel's layout: b0 b1 b2 a1 a2,
+    then 2 x 2 matrices, row-major: G, the transition of the section's
+    transposed-direct-form state (s1, s2) over L samples of zero input,
+    to the powers 1..32, 64, 128, 256 and 512 (the block scan's
+    strides); and the transition over `seg` samples (a cluster's
+    segment). One sample maps (s1, s2) to (s2 - a1 s1, -a2 s1)."""
+    sos = np.asarray(sos, dtype=np.float64).reshape(-1, 5)
+    one = np.zeros((sos.shape[0], 2, 2))
+    one[:, 0, 0], one[:, 0, 1], one[:, 1, 0] = -sos[:, 3], 1.0, -sos[:, 4]
+    g = np.linalg.matrix_power(one, length)
+    powers = [g]
+    for _ in range(31):
+        powers.append(powers[-1] @ g)
+    for _ in range(4):
+        powers.append(powers[-1] @ powers[-1])
+    powers.append(np.linalg.matrix_power(one, seg))
+    return np.concatenate(
+        [sos, np.stack(powers, axis=1).reshape(sos.shape[0], -1)], axis=1)
 
 
 @lru_cache(maxsize=64)
-def _chunk_tables_cached(sos_key: bytes, s: int, T: int, last: int):
+def _device_tables(sos_key: bytes, s: int, length: int, seg: int,
+                   device: str):
+    """`section_tables` copied to `device` once per cascade and plan
+    instead of on every call."""
     sos = np.frombuffer(sos_key, dtype=np.float64).reshape(s, 5)
-    d = 4 * s
-    st = np.eye(d).reshape(d, s, 4).copy()     # one unit start state per row
-    R = np.zeros((d, T))
-    A_last = None
-    for n in range(T):
-        v = np.zeros(d)                        # zero input
-        for i, (b0, b1, b2, a1, a2) in enumerate(sos):
-            m = st[:, i].copy()
-            out = b0 * v + b1 * m[:, 0] + b2 * m[:, 1] - a1 * m[:, 2] - a2 * m[:, 3]
-            st[:, i] = np.stack([v, m[:, 0], out, m[:, 2]], axis=-1)
-            v = out
-        R[:, n] = v
-        if n + 1 == last:
-            A_last = st.reshape(d, d).T.copy()
-    return R, st.reshape(d, d).T.copy(), A_last
+    return torch.as_tensor(section_tables(sos, length, seg)).to(device)
 
 
-def chunk_tables(sos, T: int, last: int):
-    """Host float64 tables of the kernel's chunked form, for a cascade with
-    flattened state z (4S,) in the (S, 4) layout:
-    R (4S, T), the output over T samples from each unit state with zero
-    input; A (4S, 4S), the state transition over T samples; A_last, the
-    transition over the last chunk's `last` samples (1 <= last <= T)."""
-    sos = np.ascontiguousarray(np.asarray(sos, dtype=np.float64).reshape(-1, 5))
-    return _chunk_tables_cached(sos.tobytes(), sos.shape[0], int(T), int(last))
-
-
-@lru_cache(maxsize=64)
-def _device_tables(sos_key: bytes, s: int, T: int, last: int, device: str):
-    """The kernel's float64 inputs (coefficients, R, A, A_last), copied to
-    `device` once per cascade and chunking instead of on every call."""
-    sos = np.frombuffer(sos_key, dtype=np.float64).reshape(s, 5)
-    tables = (sos,) + chunk_tables(sos, T, last)
-    return tuple(torch.as_tensor(np.array(a)).to(device) for a in tables)
+@lru_cache(maxsize=16)
+def _sm_count(device: str) -> int:
+    props = torch.cuda.get_device_properties(torch.device(device))
+    return props.multi_processor_count
 
 
 def biquad_cascade_plain(x, sos, gain: float = 1.0, state=None):
@@ -103,28 +134,26 @@ def biquad_cascade(x, sos, gain: float = 1.0, state=None):
                          f"float32 (C, N) tensor, got {x.dtype} {tuple(x.shape)}")
     c, n = x.shape
     s = sos.shape[0]
-    if n == 0 or not 1 <= s <= MAX_SECTIONS:
-        raise ValueError(f"biquad_cascade: the kernel takes N >= 1 and 1 to "
-                         f"{MAX_SECTIONS} sections, got N={n}, S={s}")
+    if n == 0 or c == 0 or not 1 <= s <= MAX_SECTIONS:
+        raise ValueError(f"biquad_cascade: the kernel takes C, N >= 1 and 1 "
+                         f"to {MAX_SECTIONS} sections, got C={c}, N={n}, "
+                         f"S={s}")
     if state is not None:
         if (tuple(state.shape) != (c, s, 4) or state.dtype != torch.float32
                 or state.device != x.device or not state.is_contiguous()):
             raise ValueError("biquad_cascade: state must be a contiguous "
                              f"float32 ({c}, {s}, 4) tensor on {x.device}")
-    T = min(CHUNK, n)
-    k = -(-n // T)
-    coef, R, A, A_last = _device_tables(
-        np.ascontiguousarray(sos).tobytes(), s, T, n - (k - 1) * T, str(x.device))
+    seg, length, threads, blocks = segment_plan(n, c,
+                                                _sm_count(str(x.device)))
+    tab = _device_tables(np.ascontiguousarray(sos).tobytes(), s, length, seg,
+                         str(x.device))
     y = torch.empty_like(x)
     new_state = torch.empty((c, s, 4), dtype=torch.float32, device=x.device)
-    w = torch.empty((c, k, 4 * s), dtype=torch.float64, device=x.device)
-    zin = torch.empty_like(w)
     with torch.cuda.device(x.device):
-        code = fn(_build.ptr(x), _build.ptr(y), _build.ptr(coef), _build.ptr(R),
-                  _build.ptr(A), _build.ptr(A_last),
+        code = fn(_build.ptr(x), _build.ptr(y), _build.ptr(tab),
                   ctypes.c_void_p(0 if state is None else state.data_ptr()),
-                  _build.ptr(new_state), _build.ptr(w), _build.ptr(zin),
-                  float(gain), c, n, s, T, _build.stream_of(x))
+                  _build.ptr(new_state), float(gain), c, n, s, seg, length,
+                  threads, blocks, _build.stream_of(x))
         biquad_cascade.launches += 1
     _build.check("biquad_cascade", code, "biquad_cascade")
     return y, new_state

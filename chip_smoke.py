@@ -7,9 +7,12 @@ Phases, each printing its own lines:
   1. build   — compile every kernel of csrc/ with nvcc (all at once);
   2. kernels — hold each CUDA kernel against its plain PyTorch version on
                the card, at the main path's shapes and at edge shapes
-               (the envelope on inputs that stress its selection
-               fixpoint, printing its sweep counters, and in float64;
-               the FDL at every B from 2 to 8192);
+               (the cascade at N = 1 and 2, a one-sample last chunk,
+               segments in order and in a cluster, first-order sections,
+               S = 64, 512 x 2^16, and streamed in ragged blocks; the
+               envelope on inputs that stress its selection fixpoint,
+               printing its sweep counters, and in float64; the FDL at
+               every B from 2 to 8192);
   3. flagship — drive the flagship forward (8 ch x 48128 samples,
                Butterworth -> A-weighting -> compressor -> 2^15-tap
                reverb) through the port's entry points, check that it
@@ -30,7 +33,8 @@ Phases, each printing its own lines:
                from CUDA-graph replay, and time as back-to-back calls)
                beside its bound, its plain version and a library call
                where one exists (the FDL's also at the chain's and the
-               folded shape), the reverb's two streaming paths, the
+               folded shape) and device time per launch (profiler) of
+               K1, K3 and K4, the reverb's two streaming paths, the
                chain's time per block and real-time factor, and the two
                Moog kernels at 128 ch x 2^16.
 The line before the last is the card's name and power limit; the last is
@@ -293,23 +297,49 @@ def main() -> int:
     # -- 2. kernel checks ----------------------------------------------------
     cascade = BiquadChain(butterworth_lp(2000.0, 10, SR))
     weighting = weighting_chain(WeightingType.A, SR)
-    # 20 sections take the kernel's generic (non-template) path
-    cascade20 = BiquadChain(np.concatenate([cascade.runtime_sos] * 4),
-                            condition=False)
-    for label, chain, c, n, with_state in [
-            ("cascade main", cascade, CHANNELS, N_FLAGSHIP, False),
-            ("weighting main", weighting, CHANNELS, N_FLAGSHIP, False),
-            ("cascade C=1 N=1000 state", cascade, 1, 1000, True),
-            ("weighting C=3 N=1000 state", weighting, 3, 1000, True),
-            ("cascade C=5 N=129 state", cascade, 5, 129, True),
-            ("cascade x4 C=2 N=3000 state", cascade20, 2, 3000, True)]:
-        sos = chain.runtime_sos
+    # the K3 cases: the main shapes, N = 1 and 2, a last chunk of one
+    # sample, one sample past the longest segment (two segments in order
+    # where the channels fill the card, a cluster of six blocks where they
+    # do not), only first-order sections (as condition_sos leaves the
+    # A-weighting's high-pass), S = 64, and the timing shape 512 x 2^16
+    # with S = 15
+    cascade20 = np.concatenate([cascade.runtime_sos] * 4)
+    sos15 = np.concatenate([cascade.runtime_sos, weighting.runtime_sos,
+                            butterworth_lp(8000.0, 8, SR)])
+    assert sos15.shape[0] == 15 and not BiquadChain(sos15, condition=False).has_slow_poles
+    sos64 = np.concatenate([sos15] * 4 + [cascade.runtime_sos[:4]])
+    first = weighting.runtime_sos[weighting.runtime_sos[:, 4] == 0.0]
+    n_chunk1 = 5006                                   # n % L == 1
+    n_seg1 = bqmod.SMEM_BYTES // 8 + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c_fill = sms // 2 + 1                             # one block a channel
+    assert n_chunk1 % bqmod.segment_plan(n_chunk1, 3, sms)[1] == 1
+    assert bqmod.segment_plan(n_seg1, c_fill, sms)[3] == 1
+    assert bqmod.segment_plan(n_seg1, 3, sms)[3] > 1 and len(first) >= 2
+    for label, sos, gain, c, n, with_state in [
+            ("cascade main", cascade.runtime_sos, cascade.gain, CHANNELS, N_FLAGSHIP, False),
+            ("weighting main", weighting.runtime_sos, weighting.gain, CHANNELS, N_FLAGSHIP, False),
+            ("cascade C=1 N=1000 state", cascade.runtime_sos, cascade.gain, 1, 1000, True),
+            ("weighting C=3 N=1000 state", weighting.runtime_sos, weighting.gain, 3, 1000, True),
+            ("cascade C=5 N=129 state", cascade.runtime_sos, cascade.gain, 5, 129, True),
+            ("cascade x4 C=2 N=3000 state", cascade20, 1.0, 2, 3000, True),
+            ("cascade N=1 state", cascade.runtime_sos, cascade.gain, 4, 1, True),
+            ("weighting N=2 state", weighting.runtime_sos, weighting.gain, 4, 2, True),
+            (f"cascade N={n_chunk1} (last chunk 1 sample) state",
+             cascade.runtime_sos, cascade.gain, 3, n_chunk1, True),
+            (f"weighting C={c_fill} N={n_seg1} (two segments in order) state",
+             weighting.runtime_sos, weighting.gain, c_fill, n_seg1, True),
+            (f"weighting C=3 N={n_seg1} (cluster) state",
+             weighting.runtime_sos, weighting.gain, 3, n_seg1, True),
+            ("first-order sections C=4 N=3000 state", first, 1.0, 4, 3000, True),
+            ("S=64 C=2 N=20000 state", sos64, 1.0, 2, 20000, True),
+            ("S=15 C=512 N=2^16", sos15, 1.0, 512, 1 << 16, False)]:
         x = randn(c, n)
         st = (0.1 * randn(c, sos.shape[0], 4)) if with_state else None
-        y, s_out = bqmod.biquad_cascade(x, sos, chain.gain, st)
-        y_p, s_p = bqmod.biquad_cascade_plain(x, sos, chain.gain, st)
+        y, s_out = bqmod.biquad_cascade(x, sos, gain, st)
+        y_p, s_p = bqmod.biquad_cascade_plain(x, sos, gain, st)
         y64, s64 = bqmod.biquad_cascade_plain(
-            x.double(), sos, chain.gain, None if st is None else st.double())
+            x.double(), sos, gain, None if st is None else st.double())
         torch.cuda.synchronize()
         snr_p, snr_64 = snr_db(host(y_p), host(y)), snr_db(host(y64), host(y))
         snr_st = snr_db(host(s64), host(s_out))
@@ -319,6 +349,25 @@ def main() -> int:
               f"SNR vs plain f32 {snr_p:.1f} dB, vs plain f64 {snr_64:.1f} dB, "
               f"state vs f64 {snr_st:.1f} dB, max|err| {err:.3e}")
         assert snr_p >= 100 and snr_64 >= 120 and snr_st >= 100, label
+    # streamed in ragged blocks with the state carried, against one call
+    sos = weighting.runtime_sos
+    x = randn(CHANNELS, N_FLAGSHIP)
+    y_w, _ = bqmod.biquad_cascade(x, sos, weighting.gain)
+    st = torch.zeros(CHANNELS, sos.shape[0], 4, device=dev)
+    cuts = np.cumsum([0, 1, 2, 5, 511, 3000, n_seg1, 10000, N_FLAGSHIP])
+    parts = []
+    for a, b in zip(cuts[:-1], np.minimum(cuts[1:], N_FLAGSHIP)):
+        y_b, st = bqmod.biquad_cascade(x[:, a:b].contiguous(), sos,
+                                       weighting.gain, st)
+        parts.append(y_b)
+    y_s = torch.cat(parts, dim=1)
+    y64, s64 = bqmod.biquad_cascade_plain(x.double(), sos, weighting.gain)
+    snr_w, snr_64 = snr_db(host(y_w), host(y_s)), snr_db(host(y64), host(y_s))
+    snr_st = snr_db(host(s64), host(st))
+    print(f"check biquad_cascade weighting streamed in {len(parts)} ragged "
+          f"blocks: SNR vs one call {snr_w:.1f} dB, vs plain f64 "
+          f"{snr_64:.1f} dB, state vs f64 {snr_st:.1f} dB")
+    assert snr_w >= 100 and snr_64 >= 120 and snr_st >= 100
 
     comp_core = convert.compressor_from_config({"sample_rate": SR}).core
     a_main = comp_core.attack_coeff
@@ -705,9 +754,6 @@ def main() -> int:
           f"{fold_k1:.4f} ms (graph replay), library {fold_lib:.4f} ms, "
           f"bound {fold_b:.6f} ms ({fold_by}) ({gpu})")
 
-    sos15 = np.concatenate([cascade.runtime_sos, weighting.runtime_sos,
-                            butterworth_lp(8000.0, 8, SR)])
-    assert sos15.shape[0] == 15 and not BiquadChain(sos15, condition=False).has_slow_poles
     xw = randn(512, 1 << 16)
     k3_ms = graph_ms(torch, lambda: bqmod.biquad_cascade(xw, sos15), reps=5)
     k3_call = time_ms(torch, lambda: bqmod.biquad_cascade(xw, sos15), reps=5)
@@ -858,11 +904,18 @@ def main() -> int:
             "fdl_conv chain block": (lambda: fdlconv.fdl_conv(xfdl, hc, Bc), 20, ("fdl_",)),
             "fdl_conv folded": (lambda: fdlconv.fdl_conv(xb, hb, Bb), 3, ("fdl_",)),
             "envelope flagship": (k4_call, 20, ("envelope_",)),
-            "envelope chain block": (block_calls["envelope"], 20, ("envelope_",))}.items():
+            "envelope chain block": (block_calls["envelope"], 20, ("envelope_",)),
+            "biquad_cascade flagship (both calls)": (
+                lambda: [f() for f in k3_calls], 20, ("biquad_",)),
+            "biquad_cascade chain block": (
+                block_calls["biquad_cascade"], 20, ("biquad_",))}.items():
         parts = kernel_breakdown(torch, call, reps, prefixes)
         print(f"time {label} by launch (profiler, device ms per call): "
               + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
                  or "not measured") + f" ({gpu})")
+    kb["ms_by_shape"] = {"flagship": kb["ms"],
+                         "chain": per_block["biquad_cascade"],
+                         "512x2^16 S=15": k3_ms}
     kf["library_ms_by_shape"] = {"flagship": kf["library_ms"],
                                  "chain": chain_lib, "folded": fold_lib}
     kf["ms_by_shape"] = {"flagship": kf["ms"], "chain": per_block["fdl_conv"],

@@ -241,26 +241,151 @@ def _direct_form(x, sos, st):
     return y, st
 
 
-def test_chunk_tables_of_the_cascade_kernel():
-    """The host tables the CUDA cascade kernel uses: zero-state chunks plus
-    the carried state's response (R) and transitions (A, A_last) rebuild
-    the cascade exactly, for a last chunk shorter than T."""
-    from algodsp_tpu_torch.ops.biquad_cascade import chunk_tables
-    sos = CHAINS["a_weighting"].runtime_sos
-    rng = np.random.default_rng(9)
-    x = rng.standard_normal(300)
-    st0 = rng.standard_normal((sos.shape[0], 4)) * 0.1
-    T = 128
-    k = -(-x.size // T)
-    last = x.size - (k - 1) * T
-    R, A, A_last = chunk_tables(sos, T, last)
+def _section_major_model(x, sos, st, seg, length, threads, blocks):
+    """numpy model of the CUDA cascade kernel's plan for one channel:
+    rounds of `blocks` segments (one block each), the first seeded by the
+    (S, 4) direct-form state. Per section, in transposed direct form II:
+    a zero-state walk of each chunk; an inclusive scan of the chunks'
+    maps c -> G c + w with the table's powers of G (within warps of 32 by
+    doubling, each warp's entering state by Horner's rule over the earlier
+    warps' totals); in a round of several blocks, each block's
+    entering state composed from the earlier blocks' end states and
+    added to chunk k through G^k; and a walk of each chunk from its
+    entering state."""
+    from algodsp_tpu_torch.ops.biquad_cascade import section_tables
+    tab = section_tables(sos, length, seg)[:, 5:].reshape(-1, 37, 2, 2)
+    pw, gseg = tab[:, :36], tab[:, 36]
+    st = st.copy()
     y = np.empty_like(x)
-    z = st0.reshape(-1)
-    for i in range(k):
-        seg = x[i * T:(i + 1) * T]
-        y_zero, st_zero = _direct_form(seg, sos, np.zeros_like(st0))
-        y[i * T:i * T + seg.size] = y_zero + z @ R[:, :seg.size]
-        z = (A if i < k - 1 else A_last) @ z + st_zero.reshape(-1)
-    y_ref, st_ref = _direct_form(x, sos, st0)
-    np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-12)
-    np.testing.assert_allclose(z, st_ref.reshape(-1), rtol=0, atol=1e-12)
+    k_ = np.arange(threads)
+    lane, warp = k_ % 32, k_ // 32
+
+    def shift(a, o):
+        out = np.zeros_like(a)
+        out[o:] = a[:-o]
+        return out
+
+    def power(s, m, v):
+        """G^m v for chunk counts m (one per row of v)."""
+        for j in range(10):
+            g = pw[s, (1 << j) - 1 if j <= 5 else 26 + j]
+            v = np.where(((m >> j) & 1)[:, None] == 1, v @ g.T, v)
+        return v
+
+    def walk(buf, sec, start, end, c, write):
+        """Chunks [start, end) of buf through section `sec` from states c,
+        all chunks at once: the end states."""
+        b0, b1, b2, a1, a2 = sec
+        s1, s2 = c[:, 0].copy(), c[:, 1].copy()
+        for i in range(length):
+            idx = start + i
+            on = idx < end
+            v = np.where(on, buf[np.minimum(idx, buf.size - 1)], 0.0)
+            out = b0 * v + s1
+            if write:
+                buf[idx[on]] = out[on]
+            s1, s2 = (np.where(on, b1 * v - a1 * out + s2, s1),
+                      np.where(on, b2 * v - a2 * out, s2))
+        return np.stack([s1, s2], axis=1)
+
+    zero = np.zeros((threads, 2))
+    for r0 in range(0, x.size, blocks * seg):
+        bufs = [x[b:b + seg].copy() for b in range(r0, min(r0 + blocks * seg, x.size), seg)]
+        ns = [b.size for b in bufs]
+        starts = [np.minimum(k_ * length, n) for n in ns]
+        ends = [np.minimum(s + length, n) for s, n in zip(starts, ns)]
+        ws = [walk(b, sos[0], s0, e0, zero, False) for b, s0, e0 in zip(bufs, starts, ends)]
+        for s, (b0, b1, b2, a1, a2) in enumerate(sos):
+            x1, x2, y1, y2 = st[s]
+            c = np.array([b1 * x1 + b2 * x2 - a1 * y1 - a2 * y2,
+                          b2 * x1 - a2 * y1])
+            es, seg_end = [], []
+            for b, w in enumerate(ws):
+                inc = w
+                for o in (1, 2, 4, 8, 16):
+                    inc = inc + (lane >= o)[:, None] * (shift(inc, o) @ pw[s, o - 1].T)
+                # each warp's entering state: Horner over the earlier
+                # warps' totals from the block's (the channel's for block 0)
+                p = np.zeros((threads // 32, 2))
+                p[0] = c if b == 0 else 0.0
+                for j in range(1, threads // 32):
+                    p[j] = pw[s, 31] @ p[j - 1] + inc[32 * j - 1]
+                p = p[warp]
+                g = pw[s, np.maximum(lane - 1, 0)]
+                e = np.where((lane == 0)[:, None], p,
+                             np.einsum("kij,kj->ki", g, p) + shift(inc, 1))
+                lst = (ns[b] - 1) // length
+                seg_end.append(pw[s, 0] @ e[lst] + w[lst])
+                es.append(e)
+            a = np.zeros(2)
+            for b in range(1, len(bufs)):
+                a = gseg[s] @ a + seg_end[b - 1]
+                es[b] = es[b] + power(s, k_, np.tile(a, (threads, 1)))
+            buf, n = bufs[-1], ns[-1]
+            ins = buf[-2:].copy() if n > 1 else np.array([x1, buf[-1]])
+            for b, buf_b in enumerate(bufs):
+                walk(buf_b, sos[s], starts[b], ends[b], es[b], True)
+            outs = buf[-2:] if n > 1 else np.array([y1, buf[-1]])
+            st[s] = [ins[-1], ins[0], outs[-1], outs[0]]
+            if s + 1 < len(sos):
+                ws = [walk(b, sos[s + 1], s0, e0, zero, False)
+                      for b, s0, e0 in zip(bufs, starts, ends)]
+        y[r0:r0 + sum(ns)] = np.concatenate(bufs)
+    return y, st
+
+
+def test_section_major_plan_of_the_cascade_kernel():
+    """The CUDA cascade kernel's decomposition (section-major chunks in
+    transposed direct form II, a two-value state per section composed by
+    a scan with powers of G, segments in order seeded by the direct-form
+    state or at once in a cluster of blocks) rebuilds the float64
+    cascade, for the Butterworth and the A-weighting chain (first-order
+    sections), from a state, with N a multiple of neither the chunk nor
+    the segment, two warps of chunks, and a last segment of one sample."""
+    rng = np.random.default_rng(9)
+    for name in ("butterworth", "a_weighting"):
+        sos = CHAINS[name].runtime_sos
+        for n, seg, blocks in ((700, 290, 1), (581, 290, 1), (700, 294, 3)):
+            x = rng.standard_normal(n)
+            st0 = rng.standard_normal((sos.shape[0], 4)) * 0.1
+            y, st = _section_major_model(x, sos, st0, seg, 7, 64, blocks)
+            y_ref, st_ref = _direct_form(x, sos, st0)
+            np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-12)
+            np.testing.assert_allclose(st, st_ref, rtol=0, atol=1e-12)
+
+
+def test_segment_plan_and_tables_of_the_cascade_kernel():
+    """`segment_plan` gives odd chunks of at least 3 samples, at most 512
+    threads in whole warps covering the segment, segments covering the
+    channel in order (one block) or at once (a cluster of at most 8
+    blocks where the channels leave SMs idle, whole chunks in all but the
+    last, which has at least 2 samples), and a float64 segment within a
+    block's 227 KB of shared memory; `section_tables` holds the
+    coefficients and the powers of the transposed direct form's state
+    transition that the scan reads."""
+    from algodsp_tpu_torch.ops.biquad_cascade import section_tables, segment_plan
+    for n, c, b_want in ((1, 1, 1), (2, 4, 1), (512, 64, 1), (5006, 3, 1),
+                         (24577, 3, 6), (48128, 8, 8), (24577, 70, 1),
+                         (1 << 16, 512, 1), (1 << 20, 1, 1)):
+        seg, length, threads, blocks = segment_plan(n, c, 132)
+        assert blocks == b_want
+        assert length % 2 == 1 and length >= 3
+        assert threads % 32 == 0 and 32 <= threads <= 512
+        assert threads * length >= seg and threads - 32 < -(-seg // length)
+        assert threads * 48 >= seg                  # the staging registers
+        # float64 segment plus the static float64 arrays, in 227 KB
+        assert seg * 8 + 8 * (4 * 64 + 64 + 2 * 153 + 6) <= 232448
+        if blocks == 1:
+            assert seg <= n and -(-n // seg) * seg < n + seg
+        else:
+            assert seg % length == 0 and (blocks - 1) * seg + 2 <= n <= blocks * seg
+    sos = CHAINS["a_weighting"].runtime_sos
+    tab = section_tables(sos, 25, 1000)
+    assert tab.shape == (sos.shape[0], 153)
+    assert np.array_equal(tab[:, :5], sos)
+    one = np.zeros((sos.shape[0], 2, 2))
+    one[:, 0, 0], one[:, 0, 1], one[:, 1, 0] = -sos[:, 3], 1.0, -sos[:, 4]
+    mats = tab[:, 5:].reshape(-1, 37, 2, 2)
+    for m, i in ((25, 0), (50, 1), (25 * 32, 31), (25 * 512, 35), (1000, 36)):
+        np.testing.assert_allclose(mats[:, i], np.linalg.matrix_power(one, m),
+                                   rtol=1e-12, atol=1e-300)
