@@ -27,6 +27,9 @@ KERNEL_SOURCES = ("biquad_cascade", "envelope", "fdlconv", "moog")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# per source: csrc/moog.cu fuses a product and a sum only where it says so
+# (its kernel instances must round alike)
+EXTRA_FLAGS = {"moog": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -61,7 +64,7 @@ def _stale(name: str) -> bool:
 def _start_build(name: str) -> tuple[subprocess.Popen, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = _lib_path(name) + f".{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -125,6 +128,24 @@ def check(name: str, code: int, what: str) -> None:
     if code != 0:
         msg = load(name).algodsp_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need the backward of a CUDA kernel.
+
+    The kernels write into fresh tensors through ctypes, so a result
+    would carry no `grad_fn`: a gradient would be cut without a word.
+    Until the custom VJPs land as `torch.autograd.Function`s (ROADMAP.md,
+    "Still to port" item 1) a CUDA call on a tensor that requires grad
+    raises instead. CPU tensors run the plain, differentiable versions
+    and never come here."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no backward yet (it comes with "
+            f"the custom VJPs); call it under torch.no_grad(), on detached "
+            f"tensors, or on the CPU")
 
 
 def stream_of(t) -> ctypes.c_void_p:

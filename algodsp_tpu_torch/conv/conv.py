@@ -7,6 +7,8 @@ kernel of 4096 taps or more run the FDL kernel of `ops/fdlconv.py`
 (as the JAX package sends them to its fused Pallas FDL); everything
 else runs one `torch.fft` product at the next power of two. The direct,
 circular and auto-selecting convolutions are queued in ROADMAP.md.
+The FDL branch is forward only: there a signal or kernel that requires
+grad raises until the FDL's custom VJP lands.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from algodsp_tpu_torch import _build
 from algodsp_tpu_torch.core.numeric import next_pow2
 from algodsp_tpu_torch.ops.fdlconv import fdl_conv, kernel_spectra, pick_block
 
@@ -52,6 +55,7 @@ def fftconvolve(a, b, mode: str = "full", *, spectra=None):
     if (a.device.type == "cuda" and a.dtype == torch.float32
             and m >= FDL_MIN_TAPS):
         B = pick_block(m, n)
+        _build.refuse_grad("fftconvolve", a, b)
         if spectra is not None:
             hspec = spectra(B, a.device)
         else:

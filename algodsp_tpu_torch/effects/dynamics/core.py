@@ -22,6 +22,7 @@ import math
 import torch
 
 from algodsp_tpu_torch._device import resolve_device
+from algodsp_tpu_torch.ops import linrec
 from algodsp_tpu_torch.ops.biquad_cascade import biquad_cascade
 from algodsp_tpu_torch.ops.envscan import envelope_scan
 
@@ -170,15 +171,21 @@ class DynamicsCore:
     @staticmethod
     def _one_pole_lp(state_val, x, coeff):
         """s_n = (1-c) s_{n-1} + c x_n, as the biquad section
-        [c, 0, 0, -(1-c), 0] with carried y_{-1} = state."""
+        [c, 0, 0, -(1-c), 0] with carried y_{-1} = state. float32 on the
+        card runs the cascade kernel; every other type and device runs
+        the blocked engine, as the reference runs `linrec.ar2_apply_scan`
+        in any type."""
         lead = x.shape[:-1]
         n = x.shape[-1]
+        sos = [[coeff, 0.0, 0.0, -(1.0 - coeff), 0.0]]
         st = torch.zeros(lead + (1, 4), dtype=x.dtype, device=x.device)
         st[..., 0, 2] = state_val
-        y, _ = biquad_cascade(x.reshape(-1, n).contiguous(),
-                              [[coeff, 0.0, 0.0, -(1.0 - coeff), 0.0]],
-                              1.0, st.reshape(-1, 1, 4))
-        y = y.reshape(lead + (n,))
+        if x.device.type == "cuda" and x.dtype == torch.float32:
+            y, _ = biquad_cascade(x.reshape(-1, n).contiguous(), sos, 1.0,
+                                  st.reshape(-1, 1, 4))
+            y = y.reshape(lead + (n,))
+        else:
+            _, y = linrec.run_sections(x, sos, st, mode="blocked")
         return y[..., -1], y
 
     def _prefilter(self, state, x):

@@ -8,11 +8,12 @@ tensor's dtype and device.
 Runtime engines, picked by `process(mode="auto")`:
 - "kernel": the fused CUDA cascade (`ops/biquad_cascade.py`), for
   float32 inputs of any leading shape (flattened onto the kernel's
-  channel axis) of chains without slow poles. On a CPU tensor the same
-  call runs the kernel's plain version.
+  channel axis) of chains without slow poles and of at most 64 runtime
+  sections. On a CPU tensor the same call runs the kernel's plain
+  version.
 - "blocked": the per-section Toeplitz engine of `ops/linrec.py`, which
   carries slow poles in the modal basis; it also serves `exact=True`
-  (float64) and other float64 inputs.
+  (float64), other float64 inputs and longer chains.
 - "scan": the per-sample recurrence, the cross-check for short inputs.
 The TPU-only engines (whole-cascade, lane folding) have no counterpart
 here: the whole-cascade engine is queued in ROADMAP.md, and folding
@@ -26,7 +27,7 @@ import torch
 
 from algodsp_tpu_torch._device import resolve_device
 from algodsp_tpu_torch.ops import linrec
-from algodsp_tpu_torch.ops.biquad_cascade import biquad_cascade
+from algodsp_tpu_torch.ops.biquad_cascade import MAX_SECTIONS, biquad_cascade
 
 
 def sos_array(sections) -> np.ndarray:
@@ -107,7 +108,8 @@ class BiquadChain:
                            dtype=dtype, device=resolve_device(device))
 
     def _auto_mode(self, x) -> str:
-        if x.dtype == torch.float32 and not self._has_slow_poles:
+        if (x.dtype == torch.float32 and not self._has_slow_poles
+                and self.num_runtime_sections <= MAX_SECTIONS):
             return "kernel"
         return "blocked"
 
@@ -132,10 +134,10 @@ class BiquadChain:
     def process(self, x, *, mode: str = "auto", exact: bool = False):
         """One-shot filtering from zero state (`chain.go:74-85`).
 
-        mode: "auto" (the kernel for float32 chains without slow poles,
-        the blocked engine otherwise), "kernel", "blocked" or "scan".
-        On the card the kernel takes up to 64 runtime sections and
-        raises on longer chains.
+        mode: "auto" (the kernel for float32 chains without slow poles
+        of at most MAX_SECTIONS = 64 runtime sections, the blocked engine
+        otherwise), "kernel", "blocked" or "scan". On the card
+        mode="kernel" raises on longer chains.
 
         exact: the float64 escape hatch for slow-pole chains: the
         blocked engine evaluates in float64 and the result is cast back

@@ -115,8 +115,9 @@ class MoogFilter:
         return [coef, self.drive_scale, self.feedback, self.input_gain,
                 self.output_scale]
 
-    def _run(self, state, x_run):
-        """The ladder over x_run (..., T) from the dict state."""
+    def _run(self, state, x_run, os: int = 1):
+        """The ladder over x_run (..., T) at oversampling `os` from the
+        dict state."""
         lead, t = x_run.shape[:-1], x_run.shape[-1]
         xf = x_run.reshape(-1, t).contiguous()
         c = xf.shape[0]
@@ -127,12 +128,12 @@ class MoogFilter:
                            .reshape(c) for r in rows]).contiguous()
         if self.variant == MoogVariant.ZDF:
             st8, y = moog_ops.moog_zdf(xf, st8, self.kernel_params(),
-                                       newton_iters=self.newton_iters)
+                                       newton_iters=self.newton_iters, os=os)
         else:
             st8, y = moog_ops.moog_ladder(
                 xf, st8, self.kernel_params(),
                 fast_tanh=self.variant in _LIGHTWEIGHT,
-                huovilainen=self.variant == MoogVariant.HUOVILAINEN)
+                huovilainen=self.variant == MoogVariant.HUOVILAINEN, os=os)
         new = {"stage": st8[:4].T.reshape(lead + (4,)),
                "tanh_last": st8[4:7].T.reshape(lead + (3,)),
                "prev_out": st8[7].reshape(lead)}
@@ -141,16 +142,9 @@ class MoogFilter:
     def process(self, state, x):
         """(state, x:(..., N)) -> (state, y). Oversampling processes each
         sample `os` times with the input applied on the first tick and
-        the last tick's output kept (zero-stuff + decimate semantics)."""
-        os = self.oversampling
+        the last tick's output kept (zero-stuff + decimate semantics),
+        inside the kernel (or its plain version): x is read and y written
+        at the base rate."""
         if x.shape[-1] == 0:
             return state, x
-        if os > 1:
-            x_run = x.new_zeros(x.shape[:-1] + (x.shape[-1] * os,))
-            x_run[..., ::os] = x * os
-        else:
-            x_run = x
-        state, y = self._run(state, x_run)
-        if os > 1:
-            y = y[..., os - 1::os]
-        return state, y
+        return self._run(state, x, self.oversampling)

@@ -121,13 +121,15 @@ def biquad_cascade(x, sos, gain: float = 1.0, state=None):
     """S-section biquad cascade of x (C, N) with gain: returns
     (y (C, N), new_state (C, S, 4)).
 
-    CUDA tensors run the fused kernel (float32, contiguous); CPU tensors
-    run `biquad_cascade_plain`."""
+    CUDA tensors run the fused kernel (float32, contiguous; forward
+    only, so a tensor that requires grad raises); CPU tensors run
+    `biquad_cascade_plain`."""
     sos = np.asarray(sos, dtype=np.float64).reshape(-1, 5)
     if x.device.type == "cpu":
         return biquad_cascade_plain(x, sos, gain, state)
     if x.device.type != "cuda":
         raise ValueError(f"biquad_cascade: unsupported device {x.device}")
+    _build.refuse_grad("biquad_cascade", x, state)
     fn = _build.entry("biquad_cascade", "biquad_cascade_f32", _ARGTYPES)
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError("biquad_cascade: the kernel takes a contiguous "

@@ -13,7 +13,8 @@ block's chunks in place of shards). It replaces the Pallas kernel
 `envelope_scan_pallas`) and takes float32 and float64.
 
 Forward only: the reverse-scan custom VJP comes with the `diff.py`
-slice (ROADMAP.md).
+slice (ROADMAP.md); until then a CUDA tensor that requires grad raises
+(`_build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -129,6 +130,7 @@ class EnvelopeKernel:
         c, t = x.shape
         if t == 0 or c == 0:
             raise ValueError("envelope_scan_kernel: empty input")
+        _build.refuse_grad("envelope_scan_kernel", x, env0, attack, release)
         fn = _build.entry("envelope", symbol, _ARGTYPES)
         for name, v in (("env0", env0), ("attack", attack), ("release", release)):
             if (tuple(v.shape) != (c,) or v.dtype != x.dtype
@@ -162,7 +164,8 @@ def envelope_scan(targets, env0, attack, release):
     real sample.
 
     CUDA tensors run the kernel (float32 or float64; leading dims are
-    flattened onto its channel axis); CPU tensors run
+    flattened onto its channel axis; T = 0 returns env0 and an empty
+    trajectory without a launch); CPU tensors run
     `envelope_scan_plain`."""
     dtype, device = targets.dtype, targets.device
     if device.type not in ("cpu", "cuda"):
@@ -173,6 +176,9 @@ def envelope_scan(targets, env0, attack, release):
         return envelope_scan_plain(targets, env0, attack, release)
     lead = targets.shape[:-1]
     t = targets.shape[-1]
+    if t == 0:
+        # nothing to walk: env0 is the final state, as on the CPU
+        return torch.broadcast_to(env0, lead).clone(), torch.empty_like(targets)
     flat = lambda v: torch.broadcast_to(v, lead).reshape(-1).contiguous()
     env_f, traj = envelope_scan_kernel(
         targets.reshape(-1, t).contiguous(), flat(env0), flat(attack),

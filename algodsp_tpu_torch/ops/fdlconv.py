@@ -14,7 +14,8 @@ the rfft of each B-tap partition at 2B points in natural bin order
 
 `fdl_conv` launches the kernel for CUDA tensors and uses
 `fdl_conv_plain` (torch.fft frames -> P-tap MAC -> irfft) only for CPU
-tensors. Forward only: the custom VJP comes with the `diff.py` slice.
+tensors. Forward only: the custom VJP comes with the `diff.py` slice;
+until then a CUDA tensor that requires grad raises (`_build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -131,6 +132,7 @@ def fdl_conv(x, hspec, B: int):
         return fdl_conv_plain(x, hspec, B)
     if x.device.type != "cuda":
         raise ValueError(f"fdl_conv: unsupported device {x.device}")
+    _build.refuse_grad("fdl_conv", x, hspec)
     C, N = x.shape
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"fdl_conv: the kernel takes contiguous float32, "

@@ -9,13 +9,17 @@ with a fixed number of Newton iterations). Same contract: x (C, T),
 state8 (8, C) = [s0..s3, t0..t2, prev], five parameters in the order
 `MoogFilter` builds them; returns (new state8, y (C, T)). Unlike the
 TPU path, every T >= 1 runs in the kernel and the state out is the
-carry after the last real sample.
+carry after the last real sample. The oversampling factor `os` is
+fused: the result is that of the ladder over x zero-stuffed to T * os
+samples (x * os on the first of each os) with every os-th output kept,
+as `MoogFilter.process` defines it; os = 1 is the TPU kernels' contract.
 
 `moog_ladder` and `moog_zdf` launch the kernels for CUDA tensors
 (float32 or float64) and use `moog_ladder_plain` / `moog_zdf_plain`, a
 per-sample loop over the step functions of `algodsp_tpu/filters/moog.py`,
 only for CPU tensors. Forward only: the recompute VJP comes with the
-other custom VJPs (ROADMAP.md).
+other custom VJPs (ROADMAP.md); until then a CUDA tensor that requires
+grad raises (`_build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -28,10 +32,12 @@ from algodsp_tpu_torch import _build
 
 STATE_LIMIT = 32.0
 MAX_NEWTON_ITERS = 8
-# moog_ladder_f32/f64(x, st_in, st_out, y, p0..p4, C, T, mode, stream) and
-# moog_zdf_f32/f64(x, st_in, st_out, y, p0..p4, C, T, newton_iters, stream)
+# moog_ladder_f32/f64(x, st_in, st_out, y, p0..p4, C, T, mode, os, stream)
+# and moog_zdf_f32/f64(x, st_in, st_out, y, p0..p4, C, T, newton_iters, os,
+# stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_double] * 5
-             + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -46,10 +52,22 @@ def poly_tanh(x):
         x < -3, -1.0, torch.clamp(x * (27 + x2) / (27 + 9 * x2), -1, 1)))
 
 
+def _stuffed(x, os: int):
+    """x zero-stuffed to os times its length, x * os on each first tick,
+    as `MoogFilter.process` runs an oversampled ladder."""
+    if os == 1:
+        return x
+    x_run = x.new_zeros(x.shape[:-1] + (x.shape[-1] * os,))
+    x_run[..., ::os] = x * os
+    return x_run
+
+
 def moog_ladder_plain(x, state8, params, *, fast_tanh: bool,
-                      huovilainen: bool):
-    """Plain PyTorch K5, one time step at a time (`moog.py:107-140`)."""
+                      huovilainen: bool, os: int = 1):
+    """Plain PyTorch K5, one time step at a time (`moog.py:107-140`),
+    over x zero-stuffed by `os`, keeping every os-th output."""
     coef, ds, fb, ig, osc = (float(p) for p in params)
+    x = _stuffed(x, os)
     tanh_fn = poly_tanh if fast_tanh and not huovilainen else torch.tanh
     s0, s1, s2, s3, t0, t1, t2, prev = state8.to(x.dtype).unbind(0)
     ys = []
@@ -75,12 +93,15 @@ def moog_ladder_plain(x, state8, params, *, fast_tanh: bool,
         s3 = _clip(s3 + coef * (t2 - ts3))
         prev = s3
         ys.append(osc * s3)
-    return torch.stack([s0, s1, s2, s3, t0, t1, t2, prev]), torch.stack(ys, -1)
+    return (torch.stack([s0, s1, s2, s3, t0, t1, t2, prev]),
+            torch.stack(ys, -1)[..., os - 1::os])
 
 
-def moog_zdf_plain(x, state8, params, *, newton_iters: int):
-    """Plain PyTorch K6, one time step at a time (`moog.py:142-183`)."""
+def moog_zdf_plain(x, state8, params, *, newton_iters: int, os: int = 1):
+    """Plain PyTorch K6, one time step at a time (`moog.py:142-183`),
+    over x zero-stuffed by `os`, keeping every os-th output."""
     gk, shape, k, ig, osc = (float(p) for p in params)
+    x = _stuffed(x, os)
     v_scale = gk / shape
     st = state8.to(x.dtype)
     s = list(st[:4].unbind(0))
@@ -116,13 +137,16 @@ def moog_zdf_plain(x, state8, params, *, newton_iters: int):
         s = [_clip(si + 2 * vi) for si, vi in zip(s, v)]
         prev = y3
         ys.append(osc * y3)
-    return torch.stack(s + [st[4], st[5], st[6], prev]), torch.stack(ys, -1)
+    return (torch.stack(s + [st[4], st[5], st[6], prev]),
+            torch.stack(ys, -1)[..., os - 1::os])
 
 
-def _check(name, x, state8, params):
+def _check(name, x, state8, params, os):
     if x.ndim != 2 or x.shape[-1] < 1:
         raise ValueError(f"{name}: x must be (C, T) with T >= 1, got "
                          f"{tuple(x.shape)}")
+    if not isinstance(os, int) or os < 1:
+        raise ValueError(f"{name}: os must be an integer >= 1, got {os!r}")
     if tuple(state8.shape) != (8, x.shape[0]):
         raise ValueError(f"{name}: state8 must be (8, {x.shape[0]}), got "
                          f"{tuple(state8.shape)}")
@@ -130,11 +154,12 @@ def _check(name, x, state8, params):
         raise ValueError(f"{name}: takes 5 parameters, got {len(params)}")
 
 
-def _launch(name, symbol, x, state8, params, last_arg):
+def _launch(name, symbol, x, state8, params, last_arg, os):
     """Run kernel `symbol` of csrc/moog.cu on CUDA tensors; returns
     (new state8, y)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    _build.refuse_grad(name, x, state8)
     if x.dtype not in _SUFFIX or not x.is_contiguous():
         raise ValueError(f"{name}: the kernel takes contiguous float32 or "
                          f"float64, got {x.dtype}")
@@ -149,23 +174,24 @@ def _launch(name, symbol, x, state8, params, last_arg):
     with torch.cuda.device(x.device):
         code = fn(_build.ptr(x), _build.ptr(state8), _build.ptr(st_out),
                   _build.ptr(y), *(float(p) for p in params), c, t, last_arg,
-                  _build.stream_of(x))
+                  os, _build.stream_of(x))
     _build.check("moog", code, name)
     return st_out, y
 
 
 def moog_ladder(x, state8, params, *, fast_tanh: bool = False,
-                huovilainen: bool = False):
-    """K5 over x (C, T): returns (new state8 (8, C), y (C, T)).
-    params = [coef, drive_scale, feedback, input_gain, output_scale].
-    CUDA tensors run the kernel; CPU tensors run `moog_ladder_plain`.
-    The Huovilainen ladder always takes the exact tanh."""
-    _check("moog_ladder", x, state8, params)
+                huovilainen: bool = False, os: int = 1):
+    """K5 over x (C, T) at oversampling `os`: returns (new state8 (8, C),
+    y (C, T)). params = [coef, drive_scale, feedback, input_gain,
+    output_scale]. CUDA tensors run the kernel; CPU tensors run
+    `moog_ladder_plain`. The Huovilainen ladder always takes the exact
+    tanh."""
+    _check("moog_ladder", x, state8, params, os)
     if x.device.type == "cpu":
         return moog_ladder_plain(x, state8, params, fast_tanh=fast_tanh,
-                                 huovilainen=huovilainen)
+                                 huovilainen=huovilainen, os=os)
     mode = 2 if huovilainen else int(bool(fast_tanh))
-    out = _launch("moog_ladder", "moog_ladder", x, state8, params, mode)
+    out = _launch("moog_ladder", "moog_ladder", x, state8, params, mode, os)
     moog_ladder.launches += 1
     return out
 
@@ -173,17 +199,20 @@ def moog_ladder(x, state8, params, *, fast_tanh: bool = False,
 moog_ladder.launches = 0
 
 
-def moog_zdf(x, state8, params, *, newton_iters: int = 4):
-    """K6 over x (C, T): returns (new state8 (8, C), y (C, T)).
-    params = [zdf_gk, drive_scale, feedback, input_gain, output_scale].
-    CUDA tensors run the kernel; CPU tensors run `moog_zdf_plain`."""
-    _check("moog_zdf", x, state8, params)
+def moog_zdf(x, state8, params, *, newton_iters: int = 4, os: int = 1):
+    """K6 over x (C, T) at oversampling `os`: returns (new state8 (8, C),
+    y (C, T)). params = [zdf_gk, drive_scale, feedback, input_gain,
+    output_scale]. CUDA tensors run the kernel; CPU tensors run
+    `moog_zdf_plain`."""
+    _check("moog_zdf", x, state8, params, os)
     if not 1 <= newton_iters <= MAX_NEWTON_ITERS:
         raise ValueError(f"moog_zdf: newton_iters must be in [1, "
                          f"{MAX_NEWTON_ITERS}], got {newton_iters}")
     if x.device.type == "cpu":
-        return moog_zdf_plain(x, state8, params, newton_iters=newton_iters)
-    out = _launch("moog_zdf", "moog_zdf", x, state8, params, int(newton_iters))
+        return moog_zdf_plain(x, state8, params, newton_iters=newton_iters,
+                              os=os)
+    out = _launch("moog_zdf", "moog_zdf", x, state8, params,
+                  int(newton_iters), os)
     moog_zdf.launches += 1
     return out
 

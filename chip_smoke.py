@@ -12,7 +12,16 @@ Phases, each printing its own lines:
                S = 64, 512 x 2^16, and streamed in ragged blocks; the
                envelope on inputs that stress its selection fixpoint,
                printing its sweep counters, and in float64; the FDL at
-               every B from 2 to 8192);
+               every B from 2 to 8192; the Moog ladders in every variant
+               at the chain's shape with fused oversampling, at C = 65,
+               T = 1 and T = 333, from a Huovilainen state whose tanh
+               rows are not tanh(ds s), with NaN and +-inf in x, fused
+               oversampling against the zero-stuffed input bit for bit,
+               and in float64), then one check per fault of the port
+               (ROADMAP.md section 3): every wrapper refuses a CUDA
+               tensor that requires grad, a float64 Compressor with
+               sidechain prefilters, a 70-section float32 chain in auto
+               mode, and envelope_scan with T = 0;
   3. flagship — drive the flagship forward (8 ch x 48128 samples,
                Butterworth -> A-weighting -> compressor -> 2^15-tap
                reverb) through the port's entry points, check that it
@@ -208,21 +217,23 @@ def fdl_work(c, n, b, p):
     return 8.0 * c * n + 8.0 * p * (b + 1), flops
 
 
-def moog_work(c, t, ops_per_step):
-    """Bytes (x in, y out, state8 in and out) and operations of a Moog
-    ladder over (C, T) float32."""
-    return 8.0 * c * t + 64.0 * c, float(ops_per_step) * c * t
+def moog_work(c, t, ops_per_step, os=1):
+    """Bytes (x in, y out at the base rate, state8 in and out) and
+    operations of a Moog ladder over (C, T) float32 at oversampling os."""
+    return 8.0 * c * t + 64.0 * c, float(ops_per_step) * c * t * os
 
 
-def moog_call(moog_ops, mf, x, st8, plain=False):
-    """The K5 or K6 wrapper (or its plain version) for MoogFilter `mf`."""
+def moog_call(moog_ops, mf, x, st8, plain=False, os=None):
+    """The K5 or K6 wrapper (or its plain version) for MoogFilter `mf`,
+    at its oversampling unless `os` is given."""
     p = mf.kernel_params()
+    os = mf.oversampling if os is None else os
     if mf.variant.value == "zdf":
         fn = moog_ops.moog_zdf_plain if plain else moog_ops.moog_zdf
-        return fn(x, st8, p, newton_iters=mf.newton_iters)
+        return fn(x, st8, p, newton_iters=mf.newton_iters, os=os)
     fn = moog_ops.moog_ladder_plain if plain else moog_ops.moog_ladder
     return fn(x, st8, p, fast_tanh="lightweight" in mf.variant.value,
-              huovilainen=mf.variant.value == "huovilainen")
+              huovilainen=mf.variant.value == "huovilainen", os=os)
 
 
 def main() -> int:
@@ -240,6 +251,7 @@ def main() -> int:
 
     from algodsp_tpu_torch import _build, convert, streaming
     from algodsp_tpu_torch.chain import Chain
+    from algodsp_tpu_torch.conv import fftconvolve
     from algodsp_tpu_torch.filters import BiquadChain
     from algodsp_tpu_torch.filters.design import butterworth_lp
     from algodsp_tpu_torch.filters.fir import FIRFilter
@@ -501,30 +513,32 @@ def main() -> int:
         assert snr_ch >= 110 and snr_p >= 110, label
 
     # Moog ladders: every variant against its plain version, at the
-    # chain's main shape (64 x 2048, a 512-sample block at
-    # oversampling 4, zero-stuffed as MoogFilter.process does), C = 1
-    # (T = 1024),
-    # C = 3 with T = 1000 from a nonzero state, and the state-clip case
-    # of tests/test_pallas.py (DC of 100, Vt = 20). Bars: atol 1e-5 on y
-    # and the state (1e-4 in the clip case), the JAX package's bars
-    # against its scan, and SNR >= 100 dB. The plain versions run on host
-    # copies of the same inputs: one Python step per sample costs ~20 us
-    # per tensor op on the card and a few on the host.
-    def stuffed(c, n, os=4, amp=0.3):
-        xs = torch.zeros(c, n * os, device=dev)
-        xs[:, ::os] = os * amp * randn(c, n)
-        return xs
-
+    # chain's main shape (64 x 512 at oversampling 4, fused in the kernel:
+    # 2048 steps a channel), C = 1 (256 samples at oversampling 4), C = 3
+    # with T = 1000 from a nonzero state (for Huovilainen its rows 4-6 are
+    # not tanh(ds s), which the kernel must not read), C = 65 (a ragged
+    # last warp) at T = 1 and T = 333 (no tile multiple), and the
+    # state-clip case of tests/test_pallas.py (DC of 100, Vt = 20). Bars:
+    # atol 1e-5 on y and the state (1e-4 in the clip case), the JAX
+    # package's bars against its scan, and SNR >= 100 dB. The plain
+    # versions run on host copies of the same inputs: one Python step per
+    # sample costs ~20 us per tensor op on the card and a few on the host.
+    chain_moog = dict(cutoff_hz=2000.0, resonance=2.0, thermal_voltage=0.5,
+                      oversampling=4)
     moog_cases = [
-        ("main", dict(cutoff_hz=2000.0, resonance=2.0, thermal_voltage=0.5,
-                      oversampling=4), lambda: stuffed(CHAIN_CH, CHAIN_BLOCK),
+        ("main", chain_moog, lambda: 0.3 * randn(CHAIN_CH, CHAIN_BLOCK),
          False, 1e-5),
-        ("C=1", dict(cutoff_hz=2000.0, resonance=2.0, thermal_voltage=0.5,
-                     oversampling=4), lambda: stuffed(1, CHAIN_BLOCK // 2),
-         False, 1e-5),
+        ("C=1", chain_moog, lambda: 0.3 * randn(1, CHAIN_BLOCK // 2), False,
+         1e-5),
         ("C=3 T=1000 state", dict(cutoff_hz=2000.0, resonance=2.0,
                                   thermal_voltage=0.5),
          lambda: 0.3 * randn(3, 1000), True, 1e-5),
+        ("C=65 T=1 state", dict(cutoff_hz=2000.0, resonance=2.0,
+                                thermal_voltage=0.5),
+         lambda: 0.3 * randn(65, 1), True, 1e-5),
+        ("C=65 T=333 state", dict(cutoff_hz=2000.0, resonance=2.0,
+                                  thermal_voltage=0.5),
+         lambda: 0.3 * randn(65, 333), True, 1e-5),
         ("clip", dict(cutoff_hz=8000.0, resonance=0.5, drive=1.0,
                       thermal_voltage=20.0),
          lambda: 100.0 + randn(2, 1024), False, 1e-4)]
@@ -540,6 +554,9 @@ def main() -> int:
             xm = make_x()
             st8 = (0.2 * randn(8, xm.shape[0]) if with_state
                    else torch.zeros(8, xm.shape[0], device=dev))
+            if variant == "huovilainen" and with_state:
+                assert not torch.allclose(st8[4:7], torch.tanh(
+                    mf.kernel_params()[1] * st8[:3]))
             s_k, y_k = moog_call(moog_ops, mf, xm, st8)
             s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
             y_k, s_k = y_k.cpu(), s_k.cpu()
@@ -548,17 +565,61 @@ def main() -> int:
             snr = snr_db(y_p.numpy(), y_k.numpy())
             kernels[name]["errs"].append(err)
             print(f"check {name} {variant} (newton {iters}) {label}: "
-                  f"C={xm.shape[0]} T={xm.shape[1]} max|err| y {err:.3e} "
-                  f"state {s_err:.3e}, SNR vs plain {snr:.1f} dB")
+                  f"C={xm.shape[0]} T={xm.shape[1]} os={mf.oversampling} "
+                  f"max|err| y {err:.3e} state {s_err:.3e}, SNR vs plain "
+                  f"{snr:.1f} dB")
             assert err <= atol and s_err <= atol and snr >= 100, \
                 (name, variant, label)
-    # one float64 call of each kernel: the same template in double; FMA
-    # contraction is all that separates it from the plain version
-    for variant in ("huovilainen", "zdf"):
+    # NaN and +-inf in x: NaN where the plain version has NaN (a NaN runs
+    # on through the channel's state), the rest within the bar
+    for variant in ("classic", "huovilainen", "zdf"):
         name = "moog_zdf" if variant == "zdf" else "moog_ladder"
         mf = MoogFilter(SR, variant=MoogVariant(variant), cutoff_hz=2000.0,
-                        resonance=2.0, thermal_voltage=0.5, oversampling=4)
-        xm = stuffed(CHAIN_CH, CHAIN_BLOCK).double()
+                        resonance=2.0, thermal_voltage=0.5)
+        xm = 0.3 * randn(4, 600)
+        xm[0, 100] = float("nan")
+        xm[1, 50] = float("inf")
+        xm[2, 70] = -float("inf")
+        st8 = torch.zeros(8, 4, device=dev)
+        s_k, y_k = moog_call(moog_ops, mf, xm, st8)
+        s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
+        y_k, s_k = y_k.cpu(), s_k.cpu()
+        nan_same = bool(torch.equal(torch.isnan(y_k), torch.isnan(y_p))
+                        and torch.equal(torch.isnan(s_k), torch.isnan(s_p)))
+        fin = ~torch.isnan(y_p)
+        err = float(torch.max(torch.abs(y_k - y_p)[fin]))
+        s_fin = ~torch.isnan(s_p)
+        s_err = float(torch.max(torch.abs(s_k - s_p)[s_fin]))
+        print(f"check {name} {variant} NaN and +-inf in x: NaN where plain "
+              f"has NaN {nan_same} ({int((~fin).sum())} samples), max|err| "
+              f"finite y {err:.3e} state {s_err:.3e}")
+        assert nan_same and bool(torch.isnan(y_k[0, 100:]).all())
+        assert err <= 1e-5 and s_err <= 1e-5, (name, variant)
+    # fused oversampling: the same kernel on the zero-stuffed input, every
+    # os-th output kept, bit for bit (state included)
+    for variant in ("classic", "huovilainen", "zdf"):
+        name = "moog_zdf" if variant == "zdf" else "moog_ladder"
+        for os_ in (2, 4):
+            mf = MoogFilter(SR, variant=MoogVariant(variant),
+                            cutoff_hz=2000.0, resonance=2.0,
+                            thermal_voltage=0.5, oversampling=os_)
+            xm = 0.3 * randn(CHAIN_CH, 300)
+            st8 = 0.2 * randn(8, CHAIN_CH)
+            s_f, y_f = moog_call(moog_ops, mf, xm, st8)
+            xs = torch.zeros(CHAIN_CH, 300 * os_, device=dev)
+            xs[:, ::os_] = xm * os_
+            s_z, y_z = moog_call(moog_ops, mf, xs, st8, os=1)
+            same = (torch.equal(y_f, y_z[:, os_ - 1::os_])
+                    and torch.equal(s_f, s_z))
+            print(f"check {name} {variant} fused os={os_} {CHAIN_CH}x300 vs "
+                  f"the zero-stuffed {CHAIN_CH}x{300 * os_}: bit-equal {same}")
+            assert same, (name, variant, os_)
+    # one float64 call of each kernel: the same template in double with
+    # libm tanh and IEEE division
+    for variant in ("huovilainen", "zdf"):
+        name = "moog_zdf" if variant == "zdf" else "moog_ladder"
+        mf = MoogFilter(SR, variant=MoogVariant(variant), **chain_moog)
+        xm = 0.3 * randn(CHAIN_CH, CHAIN_BLOCK).double()
         st8 = torch.zeros(8, CHAIN_CH, dtype=torch.float64, device=dev)
         s_k, y_k = moog_call(moog_ops, mf, xm, st8)
         s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
@@ -569,8 +630,8 @@ def main() -> int:
         assert y_k.dtype == torch.float64 and err <= 1e-9 and s_err <= 1e-9
     # resonance 4 self-oscillates: rounding differences may grow along
     # time, so the float32 kernel is only required to stay finite; its
-    # distance from the float64 plain version is printed (on an H100:
-    # 122.4 dB for K5, 105.1 dB for K6, at most 2.0e-6)
+    # distance from the float64 plain version is printed (on an NVIDIA
+    # H100: ~126 dB for K5, ~110 dB for K6, at most 1.4e-6)
     for variant in ("huovilainen", "zdf"):
         name = "moog_zdf" if variant == "zdf" else "moog_ladder"
         mf = MoogFilter(SR, variant=MoogVariant(variant), cutoff_hz=2000.0,
@@ -606,6 +667,74 @@ def main() -> int:
               f"{launched}")
         assert snr >= (120 if taps <= 64 else 110), taps
         assert launched == (1 if taps > 4096 else 0), taps
+
+    # The port's faults against the reference (ROADMAP.md section 3), one
+    # check each.
+    # Fault 1: a CUDA tensor that requires grad. The kernels write fresh
+    # tensors, so a result would carry no grad_fn; every wrapper, and
+    # fftconvolve's FDL branch for its kernel, refuses instead, until the
+    # custom VJPs land. Under no_grad the same call runs.
+    xg = randn(2, 1024).requires_grad_()
+    st8g = torch.zeros(8, 2, device=dev)
+    hg = torch.as_tensor(fdlconv.kernel_spectra(rng.standard_normal(600), 256),
+                         device=dev)
+    pg = MoogFilter(SR).kernel_params()
+    refused = []
+    for label, call in [
+            ("biquad_cascade", lambda: bqmod.biquad_cascade(
+                xg, cascade.runtime_sos, cascade.gain)),
+            ("envelope_scan", lambda: envscan.envelope_scan(xg, 0.0, 0.1, 0.01)),
+            ("fdl_conv", lambda: fdlconv.fdl_conv(xg, hg, 256)),
+            ("moog_ladder", lambda: moog_ops.moog_ladder(xg, st8g, pg)),
+            ("moog_zdf", lambda: moog_ops.moog_zdf(xg, st8g, pg)),
+            ("fftconvolve kernel", lambda: fftconvolve(
+                randn(2, 8192), torch.ones(5000, device=dev,
+                                           requires_grad=True)))]:
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(label)
+    with torch.no_grad():
+        _, y_ng = moog_ops.moog_ladder(xg, st8g, pg)
+    print(f"check fault 1 (requires_grad on the card): refused by "
+          f"{', '.join(refused)}; under no_grad runs {tuple(y_ng.shape)}")
+    assert len(refused) == 6 and y_ng.shape == xg.shape, refused
+    # Fault 2: a float64 Compressor with sidechain prefilters on the card
+    comp_sc = convert.compressor_from_config({
+        "sample_rate": SR, "sidechain_low_cut_hz": 80.0,
+        "sidechain_high_cut_hz": 6000.0})
+    x_sc = randn(2, 4096).double()
+    _, y_sc = comp_sc.process(comp_sc.init_state((2,), torch.float64), x_sc)
+    _, y_sc_p = comp_sc.process(comp_sc.init_state((2,), torch.float64, "cpu"),
+                                x_sc.cpu())
+    snr_sc = snr_db(y_sc_p.numpy(), host(y_sc))
+    print(f"check fault 2 (float64 Compressor, 80 Hz / 6 kHz prefilters, "
+          f"2x4096 on the card): {y_sc.dtype}, SNR vs plain CPU path "
+          f"{snr_sc:.1f} dB")
+    assert y_sc.dtype == torch.float64 and snr_sc >= 100
+    # Fault 3: a 70-section float32 chain in auto mode takes the blocked
+    # engine (the cascade kernel takes at most 64 sections)
+    chain70 = BiquadChain(np.concatenate([butterworth_lp(2000.0, 10, SR)] * 14))
+    x70 = randn(CHANNELS, 4096)
+    bqmod.biquad_cascade.launches = 0
+    y70 = chain70.process(x70)
+    launched = bqmod.biquad_cascade.launches
+    y70_p = chain70.process(x70.cpu())
+    snr70 = snr_db(y70_p.numpy(), host(y70))
+    print(f"check fault 3 ({chain70.num_runtime_sections}-section float32 "
+          f"chain, auto mode {chain70._auto_mode(x70)}): cascade launches "
+          f"{launched}, SNR vs plain CPU path {snr70:.1f} dB")
+    assert chain70.num_runtime_sections == 70 and launched == 0
+    assert snr70 >= 100
+    # Fault 4: envelope_scan with T = 0 returns env0 and an empty
+    # trajectory, as on the CPU
+    env0 = torch.tensor([0.3, 0.5], device=dev)
+    ef0, tr0 = envscan.envelope_scan(torch.zeros(2, 0, device=dev), env0,
+                                     0.1, 0.01)
+    print(f"check fault 4 (envelope_scan T=0 on the card): env_final "
+          f"{host(ef0).tolist()}, trajectory {tuple(tr0.shape)}")
+    assert torch.equal(ef0, env0) and tr0.shape == (2, 0)
+    assert tr0.device.type == "cuda"
 
     # -- 3. flagship forward ---------------------------------------------------
     pipe = convert.flagship_from_numpy(flag)
@@ -863,7 +992,7 @@ def main() -> int:
     nc = -(-(ext.shape[-1] + fir.num_taps - 1) // Bc) * Bc
     xfdl = torch.nn.functional.pad(ext, (0, nc - ext.shape[-1])).contiguous()
     hc = fir._spectra(Bc, dev)
-    xm = stuffed(CHAIN_CH, CHAIN_BLOCK)
+    xm = 0.3 * randn(CHAIN_CH, CHAIN_BLOCK)
     st8m = torch.zeros(8, CHAIN_CH, device=dev)
     zc = torch.zeros(CHAIN_CH, device=dev)
     comp_core = chain.runtimes["comp"].effect.core
@@ -930,13 +1059,15 @@ def main() -> int:
     # block (K5, Huovilainen at oversampling 4) and one block of the
     # direct ZDF path (K6, newton_iters 4)
     km = kernels["moog_ladder"]
-    km["ms_at"] = f"per chain block, {CHAIN_CH} x {4 * CHAIN_BLOCK} Huovilainen"
+    km["ms_at"] = (f"per chain block, {CHAIN_CH} x {CHAIN_BLOCK} Huovilainen "
+                   f"at oversampling {moog_fx.oversampling}")
     km["ms"] = per_block["moog_ladder"]
     km["call_ms"] = time_ms(torch, block_calls["moog_ladder"], 20)
     km["plain_ms"] = time_ms(torch, lambda: moog_call(
         moog_ops, moog_fx, xm, st8m, plain=True), 1, warmup=0)
     km["bound_ms"], km["bound_by"] = bound(*moog_work(
-        CHAIN_CH, 4 * CHAIN_BLOCK, MOOG_STEP_OPS["huovilainen"]))
+        CHAIN_CH, CHAIN_BLOCK, MOOG_STEP_OPS["huovilainen"],
+        moog_fx.oversampling))
     km["library_ms"] = None
     kz = kernels["moog_zdf"]
     kz["ms_at"] = f"per direct ZDF block, {CHAIN_CH} x {CHAIN_BLOCK} newton 4"

@@ -175,6 +175,28 @@ def test_auto_mode_sends_every_leading_shape_to_the_kernel(shape):
     assert torch.equal(y_s.reshape(-1, 1000), y_s2d)
 
 
+def test_auto_mode_takes_the_blocked_engine_above_max_sections():
+    """A chain longer than the cascade kernel's MAX_SECTIONS = 64 runtime
+    sections runs on the blocked engine in auto mode (the kernel refuses
+    it on the card) and matches the JAX chain at the float32 bar; at 64
+    sections auto mode still picks the kernel. The chain is the 10th-order
+    Butterworth 14 times over, so the JAX side is its jitted 5-section
+    chain applied 14 times (the blocked engine runs section after
+    section; one 70-section program takes seconds to compile)."""
+    jc = _chains()["butterworth"]
+    sos = np.concatenate([jc.sos] * 14)
+    tc = convert.biquad_chain_from_numpy(sos, jc.gain ** 14)
+    x = _x((2, 600), seed=12)
+    assert tc.num_runtime_sections == 70 and not tc.has_slow_poles
+    assert tc._auto_mode(torch.from_numpy(x)) == "blocked"
+    assert convert.biquad_chain_from_numpy(sos[:64])._auto_mode(
+        torch.from_numpy(x)) == "kernel"
+    y_j = x
+    for _ in range(14):
+        y_j = _jax_blocked("butterworth", y_j, jnp.float32)
+    assert snr_db(y_j, tc.process(torch.from_numpy(x)).numpy()) >= 100
+
+
 def test_biquad_cascade_plain_is_the_blocked_cascade():
     """The kernel's plain version (used for CPU tensors) threads the
     (C, S, 4) state and returns the true carry for N % 128 != 0."""

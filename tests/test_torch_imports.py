@@ -4,7 +4,9 @@
   `algodsp_tpu`, and no file of the port (nor chip_smoke.py) imports them.
 - Entry points raise when no CUDA device exists and none is named.
 - Kernel wrappers given a CUDA tensor launch the kernel or raise: they
-  never fall back to their plain versions.
+  never fall back to their plain versions, and they refuse a tensor that
+  requires grad (their backward is not ported yet) instead of cutting
+  the gradient.
 """
 
 import ast
@@ -19,7 +21,7 @@ import torch
 import algodsp_tpu_torch
 from algodsp_tpu_torch import _build, convert
 from algodsp_tpu_torch.chain import Chain
-from algodsp_tpu_torch.conv import PartitionedConvolver
+from algodsp_tpu_torch.conv import PartitionedConvolver, conv
 from algodsp_tpu_torch.effects.dynamics import Compressor
 from algodsp_tpu_torch.filters import BiquadChain
 from algodsp_tpu_torch.filters.moog import MoogFilter
@@ -92,11 +94,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 class _FakeCuda:
     """Stands in for a CUDA tensor on a machine without CUDA."""
 
-    def __init__(self, *shape):
+    def __init__(self, *shape, requires_grad=False):
         self.shape = torch.Size(shape)
         self.ndim = len(shape)
         self.dtype = torch.float32
         self.device = torch.device("cuda", 0)
+        self.requires_grad = requires_grad
 
     def is_contiguous(self):
         return True
@@ -136,6 +139,44 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     for wrapper in (bq.biquad_cascade, envscan.envelope_scan_kernel,
                     fdlconv.fdl_conv, moog.moog_ladder, moog.moog_zdf):
         assert isinstance(wrapper.launches, int)
+
+
+def test_kernel_wrappers_refuse_grad(monkeypatch):
+    """A CUDA call on a tensor that requires grad raises before any
+    launch (the kernels write fresh tensors, so the gradient would be cut
+    without a word); under no_grad it goes on to the launch. The CPU
+    paths stay differentiable."""
+    def no_kernel(name):
+        raise RuntimeError(f"no kernel library {name}")
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    g = lambda *shape: _FakeCuda(*shape, requires_grad=True)
+    sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
+    params = [0.1, 0.2, 0.5, 1.0, 1.0]
+    calls = [
+        lambda: bq.biquad_cascade(g(2, 256), sos),
+        lambda: bq.biquad_cascade(_FakeCuda(2, 256), sos,
+                                  state=g(2, 1, 4)),
+        lambda: envscan.envelope_scan_kernel(g(2, 256), None, None, None),
+        lambda: envscan.envelope_scan_kernel(_FakeCuda(2, 256), None,
+                                             g(2), None),
+        lambda: fdlconv.fdl_conv(g(2, 256), _FakeCuda(3, 129, 2), 128),
+        lambda: fdlconv.fdl_conv(_FakeCuda(2, 256), g(3, 129, 2), 128),
+        lambda: moog.moog_ladder(g(2, 256), _FakeCuda(8, 2), params),
+        lambda: moog.moog_zdf(_FakeCuda(2, 256), g(8, 2), params),
+        lambda: conv.fftconvolve(_FakeCuda(2, 8192),
+                                 torch.ones(5000, requires_grad=True)),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="no backward yet"):
+            call()
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="no kernel library moog"):
+            moog.moog_ladder(g(2, 256), _FakeCuda(8, 2), params)
+    x = torch.ones(2, 64, dtype=torch.float64, requires_grad=True)
+    _, y = moog.moog_ladder(x, torch.zeros(8, 2, dtype=torch.float64), params)
+    y.sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 def test_wrappers_refuse_other_devices():

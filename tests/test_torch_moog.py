@@ -79,6 +79,33 @@ def test_process_matches_jax_scan(variant, oversampling):
     _compare(jm, tm, _state(rng), x, None)
 
 
+@pytest.mark.parametrize("kernel", ["moog_ladder", "moog_zdf"])
+def test_plain_oversampling_is_zero_stuff_then_decimate(kernel):
+    """The plain versions' fused `os` (the kernels' contract) equals the
+    ladder over x zero-stuffed to T * os samples (x * os on each first
+    tick) with every os-th output kept, bit for bit, state included."""
+    rng = np.random.default_rng(21)
+    x = torch.tensor(0.4 * rng.standard_normal((2, 40)))
+    st8 = torch.tensor(0.2 * rng.standard_normal((8, 2)))
+    variant = "zdf" if kernel == "moog_zdf" else "huovilainen"
+    p = TMoog(SR, variant=TV(variant), cutoff_hz=3000.0, resonance=1.5,
+              thermal_voltage=0.8).kernel_params()
+    if kernel == "moog_zdf":
+        run = lambda xs, os: moog_ops.moog_zdf(xs, st8, p, newton_iters=2,
+                                               os=os)
+    else:
+        run = lambda xs, os: moog_ops.moog_ladder(xs, st8, p,
+                                                  huovilainen=True, os=os)
+    for os in (1, 2, 4):
+        stuffed = torch.zeros(2, 40 * os, dtype=x.dtype)
+        stuffed[:, ::os] = x * os
+        s_ref, y_ref = run(stuffed, 1)
+        s_os, y_os = run(x, os)
+        assert y_os.shape == x.shape
+        assert torch.equal(y_os, y_ref[:, os - 1::os]), os
+        assert torch.equal(s_os, s_ref), os
+
+
 def test_state_clip_matches_jax():
     # DC of 100 drives the stage equilibria past the +-32 clip
     rng = np.random.default_rng(4)
