@@ -130,22 +130,30 @@ def check(name: str, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
 
 
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise where autograd would need the backward of a CUDA kernel.
+def wants_grad(*tensors) -> bool:
+    """Grad mode is on and one of `tensors` requires grad: the call has
+    to record a backward. The one place that rule lives."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
+
+
+def refuse_grad(what: str, missing: str, *tensors) -> None:
+    """Raise where autograd would need a backward that no
+    `torch.autograd.Function` carries.
 
     The kernels write into fresh tensors through ctypes, so a result
     would carry no `grad_fn`: a gradient would be cut without a word.
-    Until the custom VJPs land as `torch.autograd.Function`s (ROADMAP.md,
-    "Still to port" item 1) a CUDA call on a tensor that requires grad
-    raises instead. CPU tensors run the plain, differentiable versions
-    and never come here."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            getattr(t, "requires_grad", False) for t in tensors):
+    The cascade (zero state), envelope and FDL calls go through their
+    Functions; what is left (the Moog ladders until their adjoint
+    kernels land, the explicit-state cascade, the raw envelope kernel)
+    raises on a CUDA tensor that requires grad when grad mode is on.
+    `missing` names what is missing. CPU tensors run the plain,
+    differentiable versions and never come here."""
+    if wants_grad(*tensors):
         raise NotImplementedError(
-            f"{what}: the CUDA kernel has no backward yet (it comes with "
-            f"the custom VJPs); call it under torch.no_grad(), on detached "
-            f"tensors, or on the CPU")
+            f"{what}: no backward on the card: {missing}; call it under "
+            f"torch.no_grad(), on detached tensors, or on the CPU")
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -7,8 +7,10 @@ kernel of 4096 taps or more run the FDL kernel of `ops/fdlconv.py`
 (as the JAX package sends them to its fused Pallas FDL); everything
 else runs one `torch.fft` product at the next power of two. The direct,
 circular and auto-selecting convolutions are queued in ROADMAP.md.
-The FDL branch is forward only: there a signal or kernel that requires
-grad raises until the FDL's custom VJP lands.
+Both branches are differentiable in `a` and in a tensor `b`: the FDL
+branch through `ops.fdlconv.FDLConvFn`, with the spectra of a `b` that
+requires grad computed on the device by `kernel_spectra_torch` (as the
+reference's `_fftconvolve_jit` does through `kernel_spectra_jax`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from algodsp_tpu_torch import _build
 from algodsp_tpu_torch.core.numeric import next_pow2
-from algodsp_tpu_torch.ops.fdlconv import fdl_conv, kernel_spectra, pick_block
+from algodsp_tpu_torch.ops.fdlconv import (
+    fdl_conv, kernel_spectra, kernel_spectra_torch, pick_block)
 
 __all__ = ["fftconvolve", "next_pow2"]
 
@@ -47,7 +50,9 @@ def fftconvolve(a, b, mode: str = "full", *, spectra=None):
     spectra: optional `(B, device) -> hspec` giving the kernel's FDL
     partition spectra (`ops.fdlconv.kernel_spectra` layout), so a caller
     that convolves with one kernel many times keeps them on the device
-    instead of computing them on every call."""
+    instead of computing them on every call. A `b` that requires grad
+    (in grad mode) bypasses it: a cached spectrum would cut the
+    gradient."""
     n, m = a.shape[-1], int(np.prod(np.shape(b)))
     if n == 0 or m == 0:
         raise ValueError("conv: empty input")
@@ -55,8 +60,10 @@ def fftconvolve(a, b, mode: str = "full", *, spectra=None):
     if (a.device.type == "cuda" and a.dtype == torch.float32
             and m >= FDL_MIN_TAPS):
         B = pick_block(m, n)
-        _build.refuse_grad("fftconvolve", a, b)
-        if spectra is not None:
+        if _build.wants_grad(b):
+            hspec = kernel_spectra_torch(b.to(a.device, torch.float32), B,
+                                         -(-m // B))
+        elif spectra is not None:
             hspec = spectra(B, a.device)
         else:
             h = (b.detach().to("cpu", torch.float64).numpy()

@@ -288,6 +288,131 @@ static int launch(const T* x, const T* env0, const T* attack, const T* release,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- The adjoint (A3) -----------------------------------------------------
+//
+// Replaces: algodsp_tpu/ops/envscan.py::_envelope_bwd (the custom-VJP
+// backward of the envelope, a reverse lax.scan plus selection-split sums).
+// Given the forward's inputs, its own trajectory and the cotangents G (of
+// the trajectory) and g_final (of env_final), per channel:
+//   env_prev_n = n ? traj[n - 1] : env0;  sel_n = x_n > env_prev_n;
+//   a_n = sel_n ? attack : release;       m_n = 1 - a_n;
+//   s_n = G_n + m_{n+1} s_{n+1},          s_{T-1} = G_{T-1} + g_final;
+//   dx_n = a_n s_n;  denv0 = m_0 s_0;
+//   datt = sum_{sel} s_n (x_n - env_prev_n);  drel = the same over !sel.
+// The selection comes from the saved trajectory, so unlike the forward the
+// recurrence is affine from the start: no selection fixpoint.
+//
+// What bounds it on the H100: the bytes. It reads x, the trajectory and G
+// and writes dx, 16 bytes a float32 sample (32 in float64), against about
+// eight operations a sample; at the flagship's 8 x 48128 that is ~1.8 us
+// at 3.35 TB/s. A reverse walk of a channel is a chain of T dependent
+// steps, which is what the design splits.
+//
+// Design: one block per channel, one chunk of L samples per thread, the
+// threads in reverse time order (thread 0 owns the last chunk):
+//   1. each thread composes its chunk's map carry_out = A carry_in + W
+//      walking backward (float64);
+//   2. the block's exclusive scan of the maps (the forward's
+//      exclusive_affine_scan, in thread order, so over the later chunks)
+//      gives each chunk its entering carry from g_final;
+//   3. each thread walks its chunk again from that carry in the working
+//      type, as the plain scan does, writing dx = a s and adding s delta
+//      into its attack or release sum (float64); the chunk holding sample
+//      0 writes denv0.
+// The carry is formed as s - a s (one FMA), not (1 - a) s: for a
+// coefficient near 0 (a compressor's release, ~1.4e-4) 1 - a in float32
+// keeps only a few bits of a, an error the scan multiplies over ~1/a
+// steps (85 dB against float64 at the compressor's ballistics). The two
+// sums are reduced per block in a fixed order (warps by xor shuffles,
+// then thread 0 over the warp sums in warp order), so a run repeats bit
+// for bit. Chunks read device memory directly (no staging):
+// this first design is simple and right, not yet fast.
+
+// Sum of v over the block in a fixed order; the result is valid in
+// thread 0. s: 32 doubles of shared memory.
+__device__ __forceinline__ double block_sum(double v, double* s) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(full, v, o);
+  if (lane == 0) s[warp] = v;
+  __syncthreads();
+  double t = 0.0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < nwarps; ++w) t += s[w];
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ENV_MAX_THREADS) envelope_adjoint_kernel(
+    const T* __restrict__ x, const T* __restrict__ traj,
+    const T* __restrict__ env0, const T* __restrict__ attack,
+    const T* __restrict__ release, const T* __restrict__ g,
+    const T* __restrict__ g_final, T* __restrict__ dx, T* __restrict__ denv0,
+    T* __restrict__ datt, T* __restrict__ drel, long long n, long long L) {
+  __shared__ double sA[32], sW[32], s_att[32], s_rel[32];
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const size_t off = (size_t)c * n;
+  const T* xc = x + off;
+  const T* tc = traj + off;
+  const T* gc = g + off;
+  T* dc = dx + off;
+  const T a = attack[c], r = release[c], e0 = env0[c];
+  const long long nchunks = (n + L - 1) / L;
+  const long long chunk = nchunks - 1 - tid;       // < 0: no chunk
+  const long long start = chunk >= 0 ? chunk * L : 0;
+  const long long end = chunk >= 0 ? min(start + L, n) : 0;
+
+  double A = 1.0, W = 0.0;
+  for (long long i = end - 1; i >= start; --i) {
+    const T xv = xc[i], ep = i > 0 ? tc[i - 1] : e0;
+    const double coef = (double)(xv > ep ? a : r);
+    const double s = (double)gc[i] + W;
+    W = s - coef * s;
+    A *= 1.0 - coef;
+  }
+  exclusive_affine_scan(A, W, sA, sW);
+  T carry = (T)(A * (double)g_final[c] + W);
+
+  double sum_att = 0.0, sum_rel = 0.0;
+  for (long long i = end - 1; i >= start; --i) {
+    const T xv = xc[i], ep = i > 0 ? tc[i - 1] : e0;
+    const bool up = xv > ep;
+    const T coef = up ? a : r;
+    const T s = gc[i] + carry;
+    dc[i] = coef * s;
+    const double sd = (double)(s * (xv - ep));
+    if (up)
+      sum_att += sd;
+    else
+      sum_rel += sd;
+    carry = s - coef * s;
+  }
+  if (chunk == 0) denv0[c] = carry;
+  sum_att = block_sum(sum_att, s_att);
+  sum_rel = block_sum(sum_rel, s_rel);
+  if (tid == 0) {
+    datt[c] = (T)sum_att;
+    drel[c] = (T)sum_rel;
+  }
+}
+
+template <typename T>
+static int launch_adjoint(const T* x, const T* traj, const T* env0,
+                          const T* attack, const T* release, const T* g,
+                          const T* g_final, T* dx, T* denv0, T* datt, T* drel,
+                          int C, long long n, long long L, int threads,
+                          void* stream) {
+  if (C < 1 || n < 1 || L < 1 || threads < 32 || threads > ENV_MAX_THREADS ||
+      threads % 32 || (long long)threads * L < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  envelope_adjoint_kernel<T><<<C, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      x, traj, env0, attack, release, g, g_final, dx, denv0, datt, drel, n, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
 const char* algodsp_error_string(int code) {
@@ -312,6 +437,28 @@ int envelope_scan_f64(const double* x, const double* env0,
                       void* counts, void* stream) {
   return launch<double>(x, env0, attack, release, traj, env_final, C, n, seg,
                         L, threads, max_sweeps, counts, stream);
+}
+
+// x, traj, g, dx: (C, n); env0, attack, release, g_final, denv0, datt,
+// drel: (C,). L and threads come from ops/envscan.py::adjoint_plan.
+// Returns cudaGetLastError() after the launch.
+int envelope_adjoint_f32(const float* x, const float* traj, const float* env0,
+                         const float* attack, const float* release,
+                         const float* g, const float* g_final, float* dx,
+                         float* denv0, float* datt, float* drel, int C,
+                         long long n, long long L, int threads, void* stream) {
+  return launch_adjoint<float>(x, traj, env0, attack, release, g, g_final, dx,
+                               denv0, datt, drel, C, n, L, threads, stream);
+}
+
+int envelope_adjoint_f64(const double* x, const double* traj,
+                         const double* env0, const double* attack,
+                         const double* release, const double* g,
+                         const double* g_final, double* dx, double* denv0,
+                         double* datt, double* drel, int C, long long n,
+                         long long L, int threads, void* stream) {
+  return launch_adjoint<double>(x, traj, env0, attack, release, g, g_final, dx,
+                                denv0, datt, drel, C, n, L, threads, stream);
 }
 
 }  // extern "C"

@@ -408,6 +408,53 @@ __global__ void __launch_bounds__(FFT_MAX_THREADS) fdl_inverse(const float2* __r
   RADIX_SWITCH(r, store_kept<R>(v, yf, lt, T, nb, M));
 }
 
+// -- The spectra adjoint (A1's dH) -----------------------------------------
+//
+// Replaces: the spectra half of algodsp_tpu/ops/fdlconv.py::_fdl_bwd (the
+// custom-VJP backward of the fused FDL; jnp.fft plus a frame-lag
+// correlation in XLA there). It is the transpose of fdl_mac: with X the
+// frame spectra of the forward (its first launch's scratch) and dV the
+// rfft of the embedded cotangent frames [0_B, g_f],
+//   dH[p, k] = w_k sum_c sum_{f=p}^{nf-1} dV[c, f, k] conj(X[c, f-p, k])
+// for p < nf, and 0 for nf <= p < P (a partition delayed past the last
+// frame never meets the signal). w_k = c_k / 2B, c_k = 2 on the interior
+// bins and 1 at DC and Nyquist: the adjoint of irfft at 2B points over
+// the port's half spectrum. The imaginary parts at DC and Nyquist are
+// read by no inverse transform, so they get no gradient (0).
+//
+// What bounds it on the H100: per (p, k) it runs C (nf - p) complex
+// multiply-adds, ~8 C nf P (B+1) operations in all, against the bytes of
+// X and dV (16 C nf (B+1)) and dH (8 P (B+1)); at IR learning's 8 x 47
+// frames of B = 1024 and P = 32 that is ~0.1 GFLOP: operation-bound.
+// Design: one thread per (p, k) walking (c, f), neighbouring threads on
+// neighbouring bins so that every load is coalesced; the sum is float64 in
+// the order (c, f), so it does not depend on the launch. Each spectrum is
+// read P times (from L2 at the training shapes): simple and right first.
+__global__ void fdl_spectra_adjoint_kernel(const float2* __restrict__ X,
+                                           const float2* __restrict__ dV,
+                                           float2* __restrict__ dH, int C,
+                                           int nf, int B) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.y;
+  if (k > B) return;
+  const size_t stride = (size_t)B + 1;
+  double re = 0.0, im = 0.0;
+  for (int c = 0; c < C && p < nf; ++c) {
+    const float2* Vc = dV + (size_t)c * nf * stride + k;
+    const float2* Xc = X + (size_t)c * nf * stride + k;
+    for (int f = p; f < nf; ++f) {
+      const float2 v = __ldg(Vc + (size_t)f * stride);
+      const float2 x = __ldg(Xc + (size_t)(f - p) * stride);
+      re += (double)v.x * x.x + (double)v.y * x.y;
+      im += (double)v.y * x.x - (double)v.x * x.y;
+    }
+  }
+  const bool edge = k == 0 || k == B;
+  const double w = (edge ? 1.0 : 2.0) / (2.0 * B);
+  dH[(size_t)p * stride + k] =
+      make_float2((float)(re * w), edge ? 0.0f : (float)(im * w));
+}
+
 typedef void (*MacKernel)(const float2*, const float2*, float2*, int, int, int);
 
 static MacKernel mac_kernel(int G) {
@@ -485,6 +532,22 @@ int fdl_conv_f32(const float* x, const float* H, const float* tw, float* X,
   if (err != cudaSuccess) return static_cast<int>(err);
   fdl_inverse<<<fft_blocks, fpb * T, smem, st>>>(
       reinterpret_cast<const float2*>(Y), tw2, y, C, N, B, n16, rem, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X, dV: (C, nf, B+1) complex; dH: (P, B+1) complex, written whole. B in
+// [2, 8192]. Returns cudaGetLastError() after the launch.
+int fdl_spectra_adjoint_f32(const float* X, const float* dV, float* dH, int C,
+                            int nf, int B, int P, void* stream) {
+  if (C < 1 || C > 65535 || nf < 1 || B < 2 || B > MAX_BLOCK || P < 1 ||
+      P > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)((B + 1 + MAC_THREADS - 1) / MAC_THREADS),
+                  (unsigned)P);
+  fdl_spectra_adjoint_kernel<<<grid, MAC_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(X), reinterpret_cast<const float2*>(dV),
+      reinterpret_cast<float2*>(dH), C, nf, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from algodsp_tpu_torch import _build
 from algodsp_tpu_torch._device import resolve_device
 from algodsp_tpu_torch.ops import linrec
 from algodsp_tpu_torch.ops.biquad_cascade import biquad_cascade
@@ -174,13 +175,18 @@ class DynamicsCore:
         [c, 0, 0, -(1-c), 0] with carried y_{-1} = state. float32 on the
         card runs the cascade kernel; every other type and device runs
         the blocked engine, as the reference runs `linrec.ar2_apply_scan`
-        in any type."""
+        in any type. So does float32 on the card when a gradient is
+        wanted (grad mode on and x or the state requiring grad): the
+        kernel's explicit-state call has no backward, and the blocked
+        engine is plain PyTorch that autograd differentiates, as
+        `jax.grad` does the reference's scan."""
         lead = x.shape[:-1]
         n = x.shape[-1]
         sos = [[coeff, 0.0, 0.0, -(1.0 - coeff), 0.0]]
-        st = torch.zeros(lead + (1, 4), dtype=x.dtype, device=x.device)
+        st = x.new_zeros(lead + (1, 4))
         st[..., 0, 2] = state_val
-        if x.device.type == "cuda" and x.dtype == torch.float32:
+        if (x.device.type == "cuda" and x.dtype == torch.float32
+                and not _build.wants_grad(x, state_val)):
             y, _ = biquad_cascade(x.reshape(-1, n).contiguous(), sos, 1.0,
                                   st.reshape(-1, 1, 4))
             y = y.reshape(lead + (n,))

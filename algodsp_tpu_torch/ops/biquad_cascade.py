@@ -15,7 +15,11 @@ per-section tables the kernel reads.
 
 `biquad_cascade` launches the kernel for CUDA tensors and uses
 `biquad_cascade_plain` (the blocked Toeplitz engine of `ops/linrec.py`)
-only for CPU tensors.
+only for CPU tensors. The zero-state call is differentiable in x through
+`BiquadCascadeFn`, the port of the reference's `_cascade_diff_op`: the
+backward is one more call of the same cascade on the time-reversed
+cotangent. The explicit-state call has no backward on the card, as the
+reference's has none through Pallas.
 """
 
 from __future__ import annotations
@@ -117,19 +121,54 @@ def biquad_cascade_plain(x, sos, gain: float = 1.0, state=None):
     return y, new_state
 
 
+class BiquadCascadeFn(torch.autograd.Function):
+    """(y, new_state) of the zero-state cascade y = gain T x,
+    differentiable in x: T is the causal Toeplitz matrix of the cascade,
+    so its adjoint is J T J (J the time flip) and dx = flip(cascade(flip(g)))
+    with zero state and the same gain. new_state carries no gradient (the
+    reference's differentiable call returns no state). CUDA tensors run
+    K3, CPU tensors `biquad_cascade_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, sos, gain):
+        ctx.sos, ctx.gain = sos, gain
+        y, new_state = _cascade(x, sos, gain, None)
+        ctx.mark_non_differentiable(new_state)
+        return y, new_state
+
+    @staticmethod
+    def backward(ctx, g, _):
+        dr, _ = _cascade(torch.flip(g, (-1,)).contiguous(), ctx.sos,
+                         ctx.gain, None)
+        return torch.flip(dr, (-1,)), None, None
+
+
 def biquad_cascade(x, sos, gain: float = 1.0, state=None):
     """S-section biquad cascade of x (C, N) with gain: returns
     (y (C, N), new_state (C, S, 4)).
 
-    CUDA tensors run the fused kernel (float32, contiguous; forward
-    only, so a tensor that requires grad raises); CPU tensors run
-    `biquad_cascade_plain`."""
+    CUDA tensors run the fused kernel (float32, contiguous); CPU tensors
+    run `biquad_cascade_plain`. From zero state (state=None) the call is
+    differentiable in x (`BiquadCascadeFn`);
+    with an explicit state a CUDA tensor that requires grad raises."""
     sos = np.asarray(sos, dtype=np.float64).reshape(-1, 5)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"biquad_cascade: unsupported device {x.device}")
+    if state is None:
+        return BiquadCascadeFn.apply(x, sos, gain)
+    if state is not None and x.device.type == "cuda":
+        _build.refuse_grad("biquad_cascade with an explicit state", "the "
+                           "explicit-state cascade has no backward (nor has "
+                           "the reference's through Pallas); pass state=None "
+                           "or use the blocked engine", x, state)
+    return _cascade(x, sos, gain, state)
+
+
+def _cascade(x, sos, gain: float, state):
+    """The cascade on checked arguments: the kernel for a CUDA tensor,
+    the plain version for a CPU one."""
     if x.device.type == "cpu":
         return biquad_cascade_plain(x, sos, gain, state)
-    if x.device.type != "cuda":
-        raise ValueError(f"biquad_cascade: unsupported device {x.device}")
-    _build.refuse_grad("biquad_cascade", x, state)
     fn = _build.entry("biquad_cascade", "biquad_cascade_f32", _ARGTYPES)
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError("biquad_cascade: the kernel takes a contiguous "

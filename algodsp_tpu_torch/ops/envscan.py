@@ -12,9 +12,12 @@ block's chunks in place of shards). It replaces the Pallas kernel
 `algodsp_tpu/ops/pallas_kernels.py::_env_kernel` (front door
 `envelope_scan_pallas`) and takes float32 and float64.
 
-Forward only: the reverse-scan custom VJP comes with the `diff.py`
-slice (ROADMAP.md); until then a CUDA tensor that requires grad raises
-(`_build.refuse_grad`).
+`envelope_scan` is differentiable in all four inputs through
+`EnvelopeFn`, the port of the reference's custom VJP `_envelope_bwd`:
+its backward is the reverse-time scan of the adjoint, the CUDA kernel
+`envelope_adjoint` of the same source on the card (float32 and
+float64) and `envelope_adjoint_plain` on the CPU, with the selection
+read from the forward's own trajectory.
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 _SYMBOLS = {torch.float32: "envelope_scan_f32",
             torch.float64: "envelope_scan_f64"}
+# envelope_adjoint_f{32,64}(x, traj, env0, attack, release, g, g_final, dx,
+#                           denv0, datt, drel, C, n, L, threads, stream)
+_ADJ_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p])
+_ADJ_SYMBOLS = {torch.float32: "envelope_adjoint_f32",
+                torch.float64: "envelope_adjoint_f64"}
 
 
 def chunk_plan(t: int, itemsize: int) -> tuple[int, int, int]:
@@ -69,6 +79,86 @@ def envelope_scan_plain(targets, env0, attack, release):
         env = env + coeff * (t - env)
         out[..., i] = env
     return env, out
+
+
+def adjoint_plan(t: int) -> tuple[int, int]:
+    """The adjoint kernel's split of a T-sample channel: (chunk length L,
+    threads). One chunk a thread, at most ENV_MAX_THREADS of them, each
+    at least ENV_MIN_CHUNK samples long."""
+    length = max(ENV_MIN_CHUNK, -(-t // ENV_MAX_THREADS))
+    chunks = -(-t // length)
+    return length, 32 * -(-chunks // 32)
+
+
+def envelope_adjoint_plain(targets, traj, env0, attack, release, g, g_final):
+    """Plain PyTorch adjoint of the envelope over (C, T), one time step at
+    a time backward: with env_prev the trajectory shifted by env0, the
+    selection sel = targets > env_prev and a = attack or release by sel,
+    the scan s_n = g_n + (1 - a_{n+1}) s_{n+1} from
+    s_{T-1} = g_{T-1} + g_final. Returns (dtargets = a s (C, T),
+    denv0 = (1 - a_0) s_0, datt = sum over sel of s (targets - env_prev),
+    drel = the same over not sel), the last three (C,).
+
+    The carry is formed as s - a s, not (1 - a) s: for a coefficient
+    near 0 (a compressor's release, ~1.4e-4) 1 - a in float32 keeps only
+    a few bits of a, and the scan multiplies that error over ~1/a steps
+    (85 dB against float64 at the compressor's ballistics, 130 dB as
+    s - a s). The forward walks env + a (t - env) for the same reason."""
+    env_prev = torch.cat([env0[:, None], traj[:, :-1]], dim=-1)
+    sel = targets > env_prev
+    a = torch.where(sel, attack[:, None], release[:, None])
+    s = torch.empty_like(targets)
+    carry = g_final
+    for i in range(targets.shape[-1] - 1, -1, -1):
+        s[:, i] = g[:, i] + carry
+        carry = s[:, i] - a[:, i] * s[:, i]
+    sd = s * (targets - env_prev)
+    zero = torch.zeros_like(sd)
+    return (a * s, carry, torch.where(sel, sd, zero).sum(-1),
+            torch.where(sel, zero, sd).sum(-1))
+
+
+def envelope_adjoint(targets, traj, env0, attack, release, g, g_final):
+    """The envelope's adjoint (`envelope_adjoint_plain`'s function) on
+    (C, T) and (C,) tensors of one type: CUDA tensors run the kernel
+    (float32 or float64, contiguous), CPU tensors the plain version.
+    `launches` counts the kernel's launches."""
+    if targets.device.type == "cpu":
+        return envelope_adjoint_plain(targets, traj, env0, attack, release,
+                                      g, g_final)
+    if targets.device.type != "cuda":
+        raise ValueError(f"envelope_adjoint: unsupported device "
+                         f"{targets.device}")
+    symbol = _ADJ_SYMBOLS.get(targets.dtype)
+    if symbol is None or targets.ndim != 2 or targets.shape[0] == 0 \
+            or targets.shape[1] == 0:
+        raise ValueError("envelope_adjoint: takes a non-empty float32 or "
+                         f"float64 (C, T) tensor, got {targets.dtype} "
+                         f"{tuple(targets.shape)}")
+    c, t = targets.shape
+    fn = _build.entry("envelope", symbol, _ADJ_ARGTYPES)
+    for name, v, shape in (("targets", targets, (c, t)), ("traj", traj, (c, t)),
+                           ("g", g, (c, t)), ("env0", env0, (c,)),
+                           ("attack", attack, (c,)), ("release", release, (c,)),
+                           ("g_final", g_final, (c,))):
+        if (tuple(v.shape) != shape or v.dtype != targets.dtype
+                or v.device != targets.device or not v.is_contiguous()):
+            raise ValueError(f"envelope_adjoint: {name} must be a contiguous "
+                             f"{targets.dtype} {shape} tensor on "
+                             f"{targets.device}")
+    length, threads = adjoint_plan(t)
+    dx = torch.empty_like(targets)
+    denv0, datt, drel = (torch.empty_like(env0) for _ in range(3))
+    with torch.cuda.device(targets.device):
+        code = fn(*(_build.ptr(v) for v in (
+            targets, traj, env0, attack, release, g, g_final, dx, denv0, datt,
+            drel)), c, t, length, threads, _build.stream_of(targets))
+        envelope_adjoint.launches += 1
+    _build.check("envelope", code, "envelope_adjoint")
+    return dx, denv0, datt, drel
+
+
+envelope_adjoint.launches = 0
 
 
 class EnvelopeKernel:
@@ -130,7 +220,9 @@ class EnvelopeKernel:
         c, t = x.shape
         if t == 0 or c == 0:
             raise ValueError("envelope_scan_kernel: empty input")
-        _build.refuse_grad("envelope_scan_kernel", x, env0, attack, release)
+        _build.refuse_grad("envelope_scan_kernel", "the raw kernel call has "
+                           "no backward; envelope_scan carries it", x, env0,
+                           attack, release)
         fn = _build.entry("envelope", symbol, _ARGTYPES)
         for name, v in (("env0", env0), ("attack", attack), ("release", release)):
             if (tuple(v.shape) != (c,) or v.dtype != x.dtype
@@ -155,6 +247,34 @@ class EnvelopeKernel:
 envelope_scan_kernel = EnvelopeKernel()
 
 
+def _envelope(targets, env0, attack, release):
+    """K4 for a CUDA tensor, the plain version for a CPU one, on (C, T)
+    and (C,) tensors."""
+    if targets.device.type == "cuda":
+        return envelope_scan_kernel(targets, env0, attack, release)
+    return envelope_scan_plain(targets, env0, attack, release)
+
+
+class EnvelopeFn(torch.autograd.Function):
+    """(env_final, trajectory) of the envelope over (C, T) with (C,)
+    env0, attack and release, differentiable in all four (the
+    reference's `_envelope_vjp`). It saves its inputs and its own
+    trajectory, so the backward's selection targets > env_prev is the
+    one the forward took. CUDA tensors run K4 and `envelope_adjoint`,
+    CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, targets, env0, attack, release):
+        env_f, traj = _envelope(targets, env0, attack, release)
+        ctx.save_for_backward(targets, traj, env0, attack, release)
+        return env_f, traj
+
+    @staticmethod
+    def backward(ctx, g_final, g):
+        return envelope_adjoint(*ctx.saved_tensors, g.contiguous(),
+                                g_final.contiguous())
+
+
 def envelope_scan(targets, env0, attack, release):
     """Run the branching one-pole envelope along the last axis.
 
@@ -163,24 +283,23 @@ def envelope_scan(targets, env0, attack, release):
     (env_final, trajectory). `env_final` is the state after the last
     real sample.
 
-    CUDA tensors run the kernel (float32 or float64; leading dims are
-    flattened onto its channel axis; T = 0 returns env0 and an empty
-    trajectory without a launch); CPU tensors run
-    `envelope_scan_plain`."""
+    Leading dims are flattened onto one channel axis; the inputs run
+    through `EnvelopeFn`, differentiable in every tensor argument (the broadcasts unbroadcast the gradients).
+    CUDA tensors run the kernels
+    (float32 or float64), CPU tensors their plain versions. T = 0
+    returns env0 and an empty trajectory without a launch, still
+    differentiable in env0."""
     dtype, device = targets.dtype, targets.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"envelope_scan: unsupported device {device}")
     as_t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     env0, attack, release = as_t(env0), as_t(attack), as_t(release)
-    if device.type == "cpu":
-        return envelope_scan_plain(targets, env0, attack, release)
     lead = targets.shape[:-1]
     t = targets.shape[-1]
     if t == 0:
-        # nothing to walk: env0 is the final state, as on the CPU
-        return torch.broadcast_to(env0, lead).clone(), torch.empty_like(targets)
+        # nothing to walk: env0 is the final state
+        return torch.broadcast_to(env0, lead).clone(), targets.clone()
     flat = lambda v: torch.broadcast_to(v, lead).reshape(-1).contiguous()
-    env_f, traj = envelope_scan_kernel(
-        targets.reshape(-1, t).contiguous(), flat(env0), flat(attack),
-        flat(release))
+    env_f, traj = EnvelopeFn.apply(targets.reshape(-1, t).contiguous(),
+                                   flat(env0), flat(attack), flat(release))
     return env_f.reshape(lead), traj.reshape(lead + (t,))

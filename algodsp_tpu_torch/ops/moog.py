@@ -17,9 +17,10 @@ as `MoogFilter.process` defines it; os = 1 is the TPU kernels' contract.
 `moog_ladder` and `moog_zdf` launch the kernels for CUDA tensors
 (float32 or float64) and use `moog_ladder_plain` / `moog_zdf_plain`, a
 per-sample loop over the step functions of `algodsp_tpu/filters/moog.py`,
-only for CPU tensors. Forward only: the recompute VJP comes with the
-other custom VJPs (ROADMAP.md); until then a CUDA tensor that requires
-grad raises (`_build.refuse_grad`).
+only for CPU tensors. Forward only on the card: the adjoint kernels of
+the reference's `_kernel_chunk_diff` (A4) are not ported yet
+(ROADMAP.md), so a CUDA tensor that requires grad raises
+(`_build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -159,7 +160,8 @@ def _launch(name, symbol, x, state8, params, last_arg, os):
     (new state8, y)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _build.refuse_grad(name, x, state8)
+    _build.refuse_grad(name, "the Moog adjoint kernels (A4) are not ported "
+                       "yet", x, state8)
     if x.dtype not in _SUFFIX or not x.is_contiguous():
         raise ValueError(f"{name}: the kernel takes contiguous float32 or "
                          f"float64, got {x.dtype}")

@@ -17,11 +17,19 @@ Phases, each printing its own lines:
                T = 1 and T = 333, from a Huovilainen state whose tanh
                rows are not tanh(ds s), with NaN and +-inf in x, fused
                oversampling against the zero-stuffed input bit for bit,
-               and in float64), then one check per fault of the port
-               (ROADMAP.md section 3): every wrapper refuses a CUDA
-               tensor that requires grad, a float64 Compressor with
-               sidechain prefilters, a 70-section float32 chain in auto
-               mode, and envelope_scan with T = 0;
+               and in float64), the two adjoint kernels (the envelope's
+               in float32 and float64 with scalar and per-channel
+               ballistics, a broadcast env0, T = 1, a T that is no chunk
+               multiple and C = 65; the FDL spectra adjoint with C = 1,
+               an odd C and P > F) and each autograd Function's
+               gradients on the card against the CPU path's, then one
+               check per fault of the port (ROADMAP.md section 3): the
+               Moog wrappers and the explicit-state cascade refuse a
+               CUDA tensor that requires grad while the cascade,
+               envelope, FDL and fftconvolve calls carry a grad_fn, a
+               float64 Compressor with sidechain prefilters (and the
+               gradient of a float32 one), a 70-section float32 chain in
+               auto mode, and envelope_scan with T = 0;
   3. flagship — drive the flagship forward (8 ch x 48128 samples,
                Butterworth -> A-weighting -> compressor -> 2^15-tap
                reverb) through the port's entry points, check that it
@@ -44,14 +52,24 @@ Phases, each printing its own lines:
                where one exists (the FDL's also at the chain's and the
                folded shape) and device time per launch (profiler) of
                K1, K3 and K4, the reverb's two streaming paths, the
-               chain's time per block and real-time factor, and the two
-               Moog kernels at 128 ch x 2^16.
+               chain's time per block and real-time factor, the two
+               Moog kernels at 128 ch x 2^16, and the two adjoint
+               kernels at the training shapes.
+  7. train   — the trainer of examples/gradient_eq_fit.py at the
+               flagship's width with torch.optim.Adam: IR learning of
+               the flagship's 2^15-tap IR through kernel_spectra_torch
+               and the FDL (8 ch x 48128, B = 1024, P = 32, 300 steps),
+               the gradient of the flagship forward in x and in an input
+               gain, and the 3-band EQ fit through diff.py (800 steps);
+               each held against the CPU path in float64 or the
+               example's own bar, with the launches of the backward;
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
 the script fails.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -66,6 +84,7 @@ CHANNELS, N_FLAGSHIP = 8, 48128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 CHAIN_CH, CHAIN_BLOCK, CHAIN_BLOCKS = 64, 512, 94
+IR_BLOCK, IR_PARTS = 1024, 32   # IR learning: the flagship's 2^15-tap IR
 
 # The effect chain at full width: 64 ch at 48 kHz in the chain's default
 # 512-sample blocks. The peak EQ is an RBJ one: the elliptic family reads
@@ -217,6 +236,22 @@ def fdl_work(c, n, b, p):
     return 8.0 * c * n + 8.0 * p * (b + 1), flops
 
 
+def envelope_adjoint_work(c, t):
+    """Bytes (targets, trajectory and cotangent in, dtargets out, the
+    seven (C,) vectors) and operations (compare, select, 1 - a, add, two
+    multiplies, subtract, the carry's multiply and a sum per sample)."""
+    return 16.0 * c * t + 28.0 * c, 9.0 * c * t
+
+
+def spectra_adjoint_work(c, nf, b, p):
+    """Bytes (X and dV in, dH out) and operations (8 for a complex
+    multiply-add per bin and per (channel, frame, lag) that the data has:
+    lags below nf only) of the FDL spectra adjoint."""
+    pairs = sum(nf - q for q in range(min(p, nf)))
+    return (16.0 * c * nf * (b + 1) + 8.0 * p * (b + 1),
+            8.0 * c * (b + 1) * pairs)
+
+
 def moog_work(c, t, ops_per_step, os=1):
     """Bytes (x in, y out at the base rate, state8 in and out) and
     operations of a Moog ladder over (C, T) float32 at oversampling os."""
@@ -249,16 +284,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, root)
 
-    from algodsp_tpu_torch import _build, convert, streaming
+    from algodsp_tpu_torch import _build, convert, diff, streaming
     from algodsp_tpu_torch.chain import Chain
     from algodsp_tpu_torch.conv import fftconvolve
-    from algodsp_tpu_torch.filters import BiquadChain
+    from algodsp_tpu_torch.filters import BiquadChain, design
+    from algodsp_tpu_torch.filters.biquad import sos_response
     from algodsp_tpu_torch.filters.design import butterworth_lp
     from algodsp_tpu_torch.filters.fir import FIRFilter
     from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
     from algodsp_tpu_torch.filters.weighting import WeightingType, weighting_chain
     from algodsp_tpu_torch.ops import biquad_cascade as bqmod
-    from algodsp_tpu_torch.ops import envscan, fdlconv
+    from algodsp_tpu_torch.ops import envscan, fdlconv, linrec
     from algodsp_tpu_torch.ops import moog as moog_ops
     from algodsp_tpu_torch.pipeline import (
         FoldedPipeline, flagship_params, folded_params)
@@ -300,6 +336,17 @@ def main() -> int:
                      "source": "algodsp_tpu_torch/csrc/moog.cu",
                      "replaces": "algodsp_tpu/ops/pallas_kernels.py:478",
                      "wrapper": moog_ops.moog_zdf, "errs": []},
+        "envelope_adjoint": {"route": "cuda",
+                             "source": "algodsp_tpu_torch/csrc/envelope.cu",
+                             "replaces": "algodsp_tpu/ops/envscan.py:102 "
+                                         "(the custom-VJP backward of K4)",
+                             "wrapper": envscan.envelope_adjoint, "errs": []},
+        "fdl_spectra_adjoint": {"route": "cuda",
+                                "source": "algodsp_tpu_torch/csrc/fdlconv.cu",
+                                "replaces": "algodsp_tpu/ops/fdlconv.py:236 "
+                                            "(the custom-VJP backward of K1)",
+                                "wrapper": fdlconv.fdl_spectra_adjoint,
+                                "errs": []},
     }
 
     def randn(*shape):
@@ -668,37 +715,185 @@ def main() -> int:
         assert snr >= (120 if taps <= 64 else 110), taps
         assert launched == (1 if taps > 4096 else 0), taps
 
+    # The adjoint kernels against their plain versions on host copies of
+    # the same inputs (bars 100 dB in float32, 200 dB in float64), and
+    # against the plain version in float64 on the same inputs (printed):
+    # at the compressor's ballistics an s sums ~7000 cotangent samples,
+    # which the plain float32 walk adds in order and the kernel in chunks
+    # of ~47 from carries composed in float64.
+    def snr_or_inf(ref, test):
+        ref = np.asarray(ref, np.float64)
+        if not np.any(ref):
+            return math.inf if not np.any(test) else -math.inf
+        return snr_db(ref, test)
+
+    adj_names = ("dtargets", "denv0", "dattack", "drelease")
+    env_adj_cases = [
+        ("main", CHANNELS, N_FLAGSHIP, 0.0, a_main, r_main),
+        ("C=3 T=1000 per-channel, broadcast env0", 3, 1000, 0.2,
+         rng.uniform(0.01, 0.5, 3), rng.uniform(0.001, 0.05, 3)),
+        ("T=1", CHANNELS, 1, 0.2, a_main, r_main),
+        ("T=15361 (no chunk multiple)", 4, 15361, 0.1, a_main, r_main),
+        ("C=65 T=333 per-channel", 65, 333, rng.uniform(0, 1, 65),
+         rng.uniform(0.01, 0.5, 65), rng.uniform(1e-5, 0.05, 65))]
+    assert 15361 % envscan.adjoint_plan(15361)[0]
+    for dtype in (np.float32, np.float64):
+        for label, c, t, e0v, av, rv in env_adj_cases:
+            xa, e0a, aa, ra = env_case(c, np.abs(rng.standard_normal((c, t))),
+                                       e0v, av, rv, dtype)
+            _, tra = k4(xa, e0a, aa, ra)
+            ga = torch.as_tensor(rng.standard_normal((c, t)).astype(dtype),
+                                 device=dev)
+            gfa = torch.as_tensor(rng.standard_normal(c).astype(dtype),
+                                  device=dev)
+            args = (xa, tra, e0a, aa, ra, ga, gfa)
+            out = envscan.envelope_adjoint(*args)
+            p64 = envscan.envelope_adjoint_plain(*(v.cpu().double() for v in args))
+            p_same = (p64 if dtype == np.float64 else
+                      envscan.envelope_adjoint_plain(*(v.cpu() for v in args)))
+            out = [v.cpu() for v in out]
+            snr64 = [snr_or_inf(r.numpy(), o.numpy()) for r, o in zip(p64, out)]
+            snr_same = [snr_or_inf(r.numpy(), o.numpy())
+                        for r, o in zip(p_same, out)]
+            err = max(float(torch.max(torch.abs(o.double() - r)))
+                      for o, r in zip(out, p64))
+            kernels["envelope_adjoint"]["errs"].append(err)
+            bar = 100 if dtype == np.float32 else 200
+            print(f"check envelope_adjoint {label}: {np.dtype(dtype).name} "
+                  f"C={c} T={t} L={envscan.adjoint_plan(t)[0]} SNR vs plain "
+                  f"{np.dtype(dtype).name} " + ", ".join(
+                      f"{n} {v:.1f}" for n, v in zip(adj_names, snr_same))
+                  + " dB; vs plain f64 on the same inputs " + ", ".join(
+                      f"{v:.1f}" for v in snr64) + f" dB; max|err| {err:.3e}")
+            assert min(snr_same) >= bar, (label, dtype)
+
+    # the FDL spectra adjoint on K1's own frame spectra (its first launch's
+    # scratch, kept as the Function keeps it) and the cotangent spectra,
+    # against the plain version in float64 on the same float32 inputs; the
+    # kernel sums in float64
+    for label, c, n, b, p in [("IR learning main", CHANNELS, N_FLAGSHIP, 1024, 32),
+                              ("C=1", 1, 8 * 1024, 1024, 3),
+                              ("C=3 odd", 3, 6 * 1024, 1024, 5),
+                              ("C=5 P > F", 5, 4 * 256, 256, 10)]:
+        xa = randn(c, n)
+        hs_a = torch.as_tensor(fdlconv.kernel_spectra(ir[:p * b], b), device=dev)
+        _, Xa = fdlconv._launch(xa, hs_a, b, fdlconv.mac_plan(c, n // b, b)[0])
+        dVa = fdlconv.cotangent_spectra(randn(c, n), b)
+        dH = fdlconv.fdl_spectra_adjoint(Xa, dVa, p)
+        dH64 = fdlconv.fdl_spectra_adjoint_plain(Xa.double(), dVa.double(), p)
+        dH32 = fdlconv.fdl_spectra_adjoint_plain(Xa, dVa, p)
+        nf = n // b
+        unseen_zero = bool(torch.all(dH[nf:] == 0)) if p > nf else None
+        edges_zero = bool(torch.all(dH[:, [0, b], 1] == 0))
+        snr64, snr32 = snr_db(host(dH64), host(dH)), snr_db(host(dH32), host(dH))
+        err = float(torch.max(torch.abs(dH.double() - dH64)))
+        kernels["fdl_spectra_adjoint"]["errs"].append(err)
+        print(f"check fdl_spectra_adjoint {label}: C={c} F={nf} B={b} P={p} "
+              f"SNR vs plain f64 {snr64:.1f} dB, vs plain f32 {snr32:.1f} dB, "
+              f"max|err| {err:.3e}, rows p >= F zero {unseen_zero}, DC and "
+              f"Nyquist imaginary parts zero {edges_zero}")
+        assert snr64 >= 100 and edges_zero and unseen_zero in (None, True), label
+
+    # each autograd Function's gradients on the card against the CPU
+    # path's Function on host copies of the same inputs: float32 on the
+    # card against the CPU in float64 (bar 100 dB) and in float32
+    # (printed), float64 against float64 (bar 200 dB)
+    def grads_of(loss_fn, inputs, device, dtype):
+        leaves = [v.detach().to(device, dtype).requires_grad_() for v in inputs]
+        loss_fn(*leaves).backward()
+        return [v.grad for v in leaves]
+
+    def weighted(w):
+        return lambda y: torch.sum(y * w.to(y.device, y.dtype))
+
+    w_main = randn(CHANNELS, N_FLAGSHIP)
+    v_main = randn(CHANNELS)
+    hs_fn = torch.as_tensor(fdlconv.kernel_spectra(ir, 1024), device=dev)
+    fn_cases = [
+        ("BiquadCascadeFn (cascade)", ("dx",), [randn(CHANNELS, N_FLAGSHIP)],
+         lambda x: weighted(w_main)(bqmod.biquad_cascade(
+             x, cascade.runtime_sos, cascade.gain)[0]), (torch.float32,)),
+        ("EnvelopeFn (main ballistics)", adj_names,
+         [torch.abs(randn(CHANNELS, N_FLAGSHIP)), torch.zeros(CHANNELS),
+          torch.tensor(a_main), torch.tensor(r_main)],
+         lambda t, e0, a, r: (lambda o: weighted(w_main)(o[1])
+                              + weighted(v_main)(o[0]))(
+             envscan.envelope_scan(t, e0, a, r)),
+         (torch.float32, torch.float64)),
+        ("EnvelopeFn (per-channel, broadcast env0)", adj_names,
+         [torch.abs(randn(3, 1000)), torch.tensor(0.2),
+          torch.as_tensor(rng.uniform(0.01, 0.5, 3)),
+          torch.as_tensor(rng.uniform(0.001, 0.05, 3))],
+         lambda t, e0, a, r: torch.sum(envscan.envelope_scan(t, e0, a, r)[1]
+                                       * torch.arange(1000, device=t.device,
+                                                      dtype=t.dtype)),
+         (torch.float32, torch.float64)),
+        ("FDLConvFn (x and hspec)", ("dx", "dhspec"),
+         [randn(CHANNELS, N_FLAGSHIP), hs_fn],
+         lambda x, h: weighted(w_main)(fdlconv.fdl_conv(x, h, 1024)),
+         (torch.float32,))]
+    for label, names, inputs, loss_fn, dtypes in fn_cases:
+        for dtype in dtypes:
+            g_card = grads_of(loss_fn, inputs, dev, dtype)
+            g_64 = grads_of(loss_fn, inputs, "cpu", torch.float64)
+            g_32 = (grads_of(loss_fn, inputs, "cpu", torch.float32)
+                    if dtype == torch.float32 else g_64)
+            snr64 = [snr_db(host(r), host(g)) for r, g in zip(g_64, g_card)]
+            snr32 = [snr_db(host(r), host(g)) for r, g in zip(g_32, g_card)]
+            bar = 100 if dtype == torch.float32 else 200
+            print(f"check grad {label} {str(dtype).removeprefix('torch.')} on "
+                  f"the card vs the CPU path's Function: f64 " + ", ".join(
+                      f"{n} {v:.1f}" for n, v in zip(names, snr64))
+                  + " dB; f32 " + ", ".join(f"{v:.1f}" for v in snr32) + " dB")
+            assert min(snr64) >= bar, (label, dtype)
+
     # The port's faults against the reference (ROADMAP.md section 3), one
     # check each.
     # Fault 1: a CUDA tensor that requires grad. The kernels write fresh
-    # tensors, so a result would carry no grad_fn; every wrapper, and
-    # fftconvolve's FDL branch for its kernel, refuses instead, until the
-    # custom VJPs land. Under no_grad the same call runs.
+    # tensors, so a result would carry no grad_fn. The cascade from zero
+    # state, the envelope, the FDL and fftconvolve's FDL branch (for its
+    # kernel too) go through their autograd Functions and carry one; the
+    # calls with no backward on the card yet (the Moog ladders, until
+    # their adjoint kernels land, and the explicit-state cascade, which
+    # the reference cannot differentiate through Pallas either) refuse
+    # instead. Under no_grad those run.
     xg = randn(2, 1024).requires_grad_()
     st8g = torch.zeros(8, 2, device=dev)
     hg = torch.as_tensor(fdlconv.kernel_spectra(rng.standard_normal(600), 256),
                          device=dev)
     pg = MoogFilter(SR).kernel_params()
+    st_bq = torch.zeros(2, cascade.num_runtime_sections, 4, device=dev)
     refused = []
     for label, call in [
-            ("biquad_cascade", lambda: bqmod.biquad_cascade(
-                xg, cascade.runtime_sos, cascade.gain)),
-            ("envelope_scan", lambda: envscan.envelope_scan(xg, 0.0, 0.1, 0.01)),
-            ("fdl_conv", lambda: fdlconv.fdl_conv(xg, hg, 256)),
             ("moog_ladder", lambda: moog_ops.moog_ladder(xg, st8g, pg)),
             ("moog_zdf", lambda: moog_ops.moog_zdf(xg, st8g, pg)),
-            ("fftconvolve kernel", lambda: fftconvolve(
-                randn(2, 8192), torch.ones(5000, device=dev,
-                                           requires_grad=True)))]:
+            ("biquad_cascade with a state", lambda: bqmod.biquad_cascade(
+                xg, cascade.runtime_sos, cascade.gain, st_bq))]:
         try:
             call()
         except NotImplementedError:
             refused.append(label)
+    carried = {}
+    for label, call in [
+            ("biquad_cascade", lambda: bqmod.biquad_cascade(
+                xg, cascade.runtime_sos, cascade.gain)[0]),
+            ("envelope_scan", lambda: envscan.envelope_scan(
+                torch.abs(xg), 0.0, 0.1, 0.01)[1]),
+            ("fdl_conv", lambda: fdlconv.fdl_conv(xg, hg, 256)),
+            ("fftconvolve kernel", lambda: fftconvolve(
+                randn(2, 8192), torch.ones(5000, device=dev,
+                                           requires_grad=True)))]:
+        out = call()
+        carried[label] = type(out.grad_fn).__name__ if out.grad_fn else None
     with torch.no_grad():
         _, y_ng = moog_ops.moog_ladder(xg, st8g, pg)
+        y_st, _ = bqmod.biquad_cascade(xg, cascade.runtime_sos, cascade.gain,
+                                       st_bq)
     print(f"check fault 1 (requires_grad on the card): refused by "
-          f"{', '.join(refused)}; under no_grad runs {tuple(y_ng.shape)}")
-    assert len(refused) == 6 and y_ng.shape == xg.shape, refused
+          f"{', '.join(refused)}; grad_fn {json.dumps(carried)}; under "
+          f"no_grad runs {tuple(y_ng.shape)} and {tuple(y_st.shape)}")
+    assert len(refused) == 3 and all(carried.values()), (refused, carried)
+    assert y_ng.shape == xg.shape and y_st.shape == xg.shape
     # Fault 2: a float64 Compressor with sidechain prefilters on the card
     comp_sc = convert.compressor_from_config({
         "sample_rate": SR, "sidechain_low_cut_hz": 80.0,
@@ -712,6 +907,22 @@ def main() -> int:
           f"2x4096 on the card): {y_sc.dtype}, SNR vs plain CPU path "
           f"{snr_sc:.1f} dB")
     assert y_sc.dtype == torch.float64 and snr_sc >= 100
+    # and the gradient of a float32 one in x: with a gradient wanted the
+    # prefilter takes the blocked engine (the kernel's explicit-state call
+    # has no backward), the envelope its Function; against the CPU path in
+    # float64
+    x_sg = randn(2, 4096).requires_grad_()
+    _, y_sg = comp_sc.process(comp_sc.init_state((2,)), x_sg)
+    torch.mean(y_sg * y_sg).backward()
+    x_sg64 = x_sg.detach().cpu().double().requires_grad_()
+    _, y_sg64 = comp_sc.process(
+        comp_sc.init_state((2,), torch.float64, "cpu"), x_sg64)
+    torch.mean(y_sg64 * y_sg64).backward()
+    snr_sg = snr_db(x_sg64.grad.numpy(), host(x_sg.grad))
+    print(f"check fault 2 (float32 Compressor, 80 Hz / 6 kHz prefilters, "
+          f"2x4096 on the card): d mean(y^2) / dx vs the CPU path in float64 "
+          f"{snr_sg:.1f} dB")
+    assert snr_sg >= 80
     # Fault 3: a 70-section float32 chain in auto mode takes the blocked
     # engine (the cascade kernel takes at most 64 sections)
     chain70 = BiquadChain(np.concatenate([butterworth_lp(2000.0, 10, SR)] * 14))
@@ -754,7 +965,8 @@ def main() -> int:
     print(f"flagship launches per forward: {json.dumps(launches)}; envelope "
           f"counts {json.dumps(env_counts['flagship'])}")
     assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1,
-                        "moog_ladder": 0, "moog_zdf": 0}, launches
+                        "moog_ladder": 0, "moog_zdf": 0,
+                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0}, launches
     assert env_counts["flagship"]["exact_walks"] == 0
 
     pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
@@ -797,7 +1009,8 @@ def main() -> int:
     assert env_counts["chain"]["exact_walks"] == 0
     assert launches == {"biquad_cascade": CHAIN_BLOCKS,
                         "envelope": CHAIN_BLOCKS, "fdl_conv": CHAIN_BLOCKS,
-                        "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0}, launches
+                        "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0,
+                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0}, launches
     n8 = 8 * CHAIN_BLOCK
     chain_cpu = Chain(SR)
     chain_cpu.load_graph(raw)
@@ -828,11 +1041,11 @@ def main() -> int:
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
         k["by_path"]["moog_zdf_direct"] = k["wrapper"].launches
-        k["launches"] = sum(k["by_path"].values())
     print(f"ZDF MoogFilter launches over {CHAIN_BLOCKS} blocks of "
           f"{CHAIN_CH}x{CHAIN_BLOCK}: {json.dumps(launches)}")
     assert launches == {"biquad_cascade": 0, "envelope": 0, "fdl_conv": 0,
-                        "moog_ladder": 0, "moog_zdf": CHAIN_BLOCKS}, launches
+                        "moog_ladder": 0, "moog_zdf": CHAIN_BLOCKS,
+                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0}, launches
     _, yz_cpu = streaming.scan_blocks(
         zdf.process, zdf.init_state((CHAIN_CH,), device="cpu"),
         torch.as_tensor(xz_np[:, :n8]), block_size=CHAIN_BLOCK)
@@ -947,6 +1160,58 @@ def main() -> int:
               f"{k['bound_ms']:.6f} ms "
               f"({k['bound_by']}), plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']} ms ({gpu})")
+
+    # the adjoint kernels at the shapes the trainer gives them:
+    # envelope_adjoint per flagship backward, fdl_spectra_adjoint per
+    # IR-learning step (beside the torch.fft call that makes its dV, the
+    # backward's one library call, which computes another function)
+    ka = kernels["envelope_adjoint"]
+    _, tr_t = envscan.envelope_scan_kernel(src, zeros, att, rel)
+    adj_t = (src, tr_t, zeros, att, rel, randn(CHANNELS, N_FLAGSHIP), zeros)
+    ka_call = lambda: envscan.envelope_adjoint(*adj_t)
+    ka["ms"] = graph_ms(torch, ka_call, 20)
+    ka["call_ms"] = time_ms(torch, ka_call, 20)
+    ka["plain_ms"] = time_ms(
+        torch, lambda: envscan.envelope_adjoint_plain(*adj_t), 1, warmup=0)
+    ka["bound_ms"], ka["bound_by"] = bound(*envelope_adjoint_work(
+        CHANNELS, N_FLAGSHIP))
+    ka["library_ms"] = None
+    ka["ms_at"] = "per flagship backward, 8 x 48128"
+    kd = kernels["fdl_spectra_adjoint"]
+    B_ir, P_ir = IR_BLOCK, IR_PARTS
+    nf_ir = N_FLAGSHIP // B_ir
+    _, X_t = fdlconv._launch(randn(CHANNELS, N_FLAGSHIP), torch.as_tensor(
+        fdlconv.kernel_spectra(ir, B_ir), device=dev), B_ir,
+        fdlconv.mac_plan(CHANNELS, nf_ir, B_ir)[0])
+    g_ir = randn(CHANNELS, N_FLAGSHIP)
+    dV_t = fdlconv.cotangent_spectra(g_ir, B_ir)
+    kd_call = lambda: fdlconv.fdl_spectra_adjoint(X_t, dV_t, P_ir)
+    kd["ms"] = graph_ms(torch, kd_call, 20)
+    kd["call_ms"] = time_ms(torch, kd_call, 20)
+    kd["plain_ms"] = time_ms(
+        torch, lambda: fdlconv.fdl_spectra_adjoint_plain(X_t, dV_t, P_ir), 5)
+    kd["bound_ms"], kd["bound_by"] = bound(*spectra_adjoint_work(
+        CHANNELS, nf_ir, B_ir, P_ir))
+    kd["library_ms"] = None
+    kd["dv_fft_ms"] = graph_ms(
+        torch, lambda: fdlconv.cotangent_spectra(g_ir, B_ir), 20)
+    kd["ms_at"] = (f"per IR-learning step, {CHANNELS} x {N_FLAGSHIP}, "
+                   f"B = {B_ir}, P = {P_ir}")
+    for name in ("envelope_adjoint", "fdl_spectra_adjoint"):
+        k = kernels[name]
+        print(f"time {name} {k['ms_at']}: kernel {k['ms']:.4f} ms (graph replay; "
+              f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}), plain "
+              f"{k['plain_ms']:.4f} ms, library none"
+              + (f"; the torch.fft of dV {k['dv_fft_ms']:.4f} ms"
+                 if "dv_fft_ms" in k else "") + f" ({gpu})")
+    for label, (call, prefixes) in {
+            "envelope_adjoint flagship": (ka_call, ("envelope_adjoint",)),
+            "fdl_spectra_adjoint IR learning": (kd_call, ("fdl_spectra",))}.items():
+        parts = kernel_breakdown(torch, call, 20, prefixes)
+        print(f"time {label} by launch (profiler, device ms per call): "
+              + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
+                 or "not measured") + f" ({gpu})")
 
     # streaming reverb: time both continuation paths of process_stream
     # (each call as the caller sees it), at the flagship IR and at a
@@ -1112,7 +1377,234 @@ def main() -> int:
               f"{b_ms:.6f} ms ({b_by}; {ops} operations a step), plain "
               f"{t_plain:.4f} ms at {cm}x256 ({gpu})")
 
-    # -- 7. kernel list ----------------------------------------------------------
+    # -- 7. train: the trainer of examples/gradient_eq_fit.py ---------------------
+    # Each driven part runs inside `counted`, which adds its launches to the
+    # phase's counts; the comparisons with the CPU path and with the plain
+    # versions run outside those windows.
+    t_train = time.perf_counter()
+    train_counts = {name: 0 for name in kernels}
+
+    def counted(fn):
+        before = {name: k["wrapper"].launches for name, k in kernels.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {name: k["wrapper"].launches - before[name]
+                 for name, k in kernels.items()}
+        for name, d in delta.items():
+            train_counts[name] += d
+        return out, delta
+
+    @contextlib.contextmanager
+    def plain_calls(targets):
+        """Count the calls of the plain versions (module attributes) while
+        the block runs."""
+        calls = {name: 0 for _, name in targets}
+        saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+        def wrap(name, fn):
+            def counting(*args, **kwargs):
+                calls[name] += 1
+                return fn(*args, **kwargs)
+            return counting
+
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap(name, fn))
+        try:
+            yield calls
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    def events_ms(fn, reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    no_kernel = {name: 0 for name in kernels}
+
+    # 7a. IR learning: the flagship's 2^15-tap IR recovered from 8 x 48128
+    # samples of input and output, through kernel_spectra_torch and the FDL
+    B_ir, P_ir, steps_ir = IR_BLOCK, IR_PARTS, 300
+    assert ir.size == B_ir * P_ir
+    x_ir = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (CHANNELS, N_FLAGSHIP)).astype(np.float32), device=dev)
+    true_ir = torch.as_tensor(ir, device=dev)
+    with torch.no_grad():
+        y_obs = fdlconv.fdl_conv(x_ir, torch.as_tensor(
+            fdlconv.kernel_spectra(ir, B_ir), device=dev), B_ir)
+
+    def ir_loss(h, x_in, y_ref):
+        y_ir = fdlconv.fdl_conv(x_in, fdlconv.kernel_spectra_torch(h, B_ir, P_ir),
+                                B_ir)
+        return torch.mean((y_ir - y_ref) ** 2)
+
+    def ir_grad_cpu64(h):
+        h64 = h.detach().cpu().double().requires_grad_()
+        ir_loss(h64, x_ir.cpu().double(), y_obs.cpu().double()).backward()
+        return h64.grad.numpy()
+
+    h_ir = torch.zeros(P_ir * B_ir, device=dev, requires_grad=True)
+    opt_ir = torch.optim.Adam([h_ir], lr=0.02)
+
+    def ir_fwd_bwd():
+        opt_ir.zero_grad()
+        loss = ir_loss(h_ir, x_ir, y_obs)
+        loss.backward()
+        return loss.detach()
+
+    loss0, per_step = counted(ir_fwd_bwd)
+    snr_g0 = snr_db(ir_grad_cpu64(h_ir), host(h_ir.grad))
+    counted(opt_ir.step)
+
+    def ir_steps(n):
+        for _ in range(n):
+            ir_fwd_bwd()
+            opt_ir.step()
+
+    ir_ms, _ = counted(lambda: events_ms(lambda: ir_steps(1), steps_ir - 2))
+    loss_last, _ = counted(ir_fwd_bwd)
+    snr_gl = snr_db(ir_grad_cpu64(h_ir), host(h_ir.grad))
+    counted(opt_ir.step)
+    err_ir = host(h_ir) - ir
+    ir_snr = 10.0 * math.log10(float(np.sum(ir.astype(np.float64) ** 2))
+                               / float(np.sum(err_ir.astype(np.float64) ** 2)))
+    print(f"train IR learning {CHANNELS}x{N_FLAGSHIP} B={B_ir} P={P_ir}, "
+          f"{steps_ir} Adam steps at lr 0.02: loss {float(loss0):.6e} -> "
+          f"{float(loss_last):.6e}, recovered IR at {ir_snr:.2f} dB SNR, "
+          f"{ir_ms:.4f} ms per step (CUDA events over {steps_ir - 2} steps), "
+          f"launches per step {json.dumps(per_step)}; dL/dh vs the CPU path "
+          f"in float64: step 0 {snr_g0:.1f} dB, last step {snr_gl:.1f} dB "
+          f"({gpu})")
+    assert per_step == {**no_kernel, "fdl_conv": 1, "fdl_spectra_adjoint": 1}
+    assert snr_g0 >= 80 and snr_gl >= 80 and float(loss_last) < float(loss0)
+
+    # 7b. the flagship's gradient in x and in a scalar input gain (the
+    # example's compressor gradient, on the whole pipeline)
+    gain_f = torch.tensor(1.0, device=dev, requires_grad=True)
+    x_f = x.clone().requires_grad_()
+    state_f = pipe.init_state(CHANNELS)
+
+    def flag_loss():
+        y_fl, _ = pipe.forward(gain_f * x_f, state_f)
+        return torch.mean(y_fl * y_fl)
+
+    plain_targets = [(bqmod, "biquad_cascade_plain"), (linrec, "run_sections"),
+                     (envscan, "envelope_scan_plain"),
+                     (envscan, "envelope_adjoint_plain"),
+                     (fdlconv, "fdl_conv_plain"), (fdlconv, "frame_spectra_plain"),
+                     (fdlconv, "_fdl_from_spectra"),
+                     (fdlconv, "fdl_spectra_adjoint_plain")]
+    with plain_calls(plain_targets) as plain_n:
+        loss_f, fwd_launches = counted(flag_loss)
+        _, bwd_launches = counted(loss_f.backward)
+    print(f"train flagship gradient {CHANNELS}x{N_FLAGSHIP}: launches forward "
+          f"{json.dumps(fwd_launches)}, backward {json.dumps(bwd_launches)}; "
+          f"plain versions called {sum(plain_n.values())} times")
+    assert fwd_launches == {**no_kernel, "biquad_cascade": 2, "envelope": 1,
+                            "fdl_conv": 1}
+    assert bwd_launches == {**no_kernel, "biquad_cascade": 2,
+                            "envelope_adjoint": 1, "fdl_conv": 1}
+    assert not any(plain_n.values()), plain_n
+    x64 = x.detach().cpu().double().requires_grad_()
+    gain64 = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    y64f, _ = pipe_cpu.forward(gain64 * x64,
+                               pipe_cpu.init_state(CHANNELS, torch.float64, "cpu"))
+    torch.mean(y64f * y64f).backward()
+    snr_dx = snr_db(x64.grad.numpy(), host(x_f.grad))
+    snr_dg = snr_db([float(gain64.grad)], [float(gain_f.grad)])
+    # selection ties: the attack/release selections of the card's float32
+    # trajectory against the float64 one, and envelope_adjoint on the
+    # card's own trajectory with the cotangent the pipeline gives it
+    core_f = pipe.compressor.core
+    with torch.no_grad():
+        y2_f = pipe.weighting.process(pipe.cascade.process(x))
+        src_f = torch.abs(y2_f)
+        src64 = torch.abs(pipe_cpu.weighting.process(
+            pipe_cpu.cascade.process(x.cpu().double())))
+        _, tr_f = envscan.envelope_scan(src_f, 0.0, a_main, r_main)
+        _, tr64 = envscan.envelope_scan(src64, 0.0, a_main, r_main)
+    prev = lambda tr: torch.cat([torch.zeros_like(tr[:, :1]), tr[:, :-1]], -1)
+    flips = int(torch.sum((src_f > prev(tr_f)).cpu() != (src64 > prev(tr64))))
+    tr_r = tr_f.clone().requires_grad_()
+    y_r = pipe.reverb.process(y2_f * core_f.gain_for_level(tr_r)
+                              * core_f.makeup_gain_lin)
+    (g_tr,) = torch.autograd.grad(torch.mean(y_r * y_r), tr_r)
+    zeros_f = torch.zeros(CHANNELS, device=dev)
+    adj_args = (src_f, tr_f, zeros_f, torch.full_like(zeros_f, a_main),
+                torch.full_like(zeros_f, r_main), g_tr, zeros_f)
+    own = envscan.envelope_adjoint(*adj_args)[0]
+    own64 = envscan.envelope_adjoint_plain(*(v.cpu().double() for v in adj_args))[0]
+    snr_own = snr_db(own64.numpy(), host(own))
+    fwd_ms = time_ms(torch, flag_loss, reps=10)
+    fb_ms = time_ms(torch, lambda: flag_loss().backward(), reps=10)
+    print(f"train flagship gradient vs the CPU path in float64: dx "
+          f"{snr_dx:.1f} dB, d/dgain {snr_dg:.1f} dB (gain grad "
+          f"{float(gain_f.grad):.6e}); selections flipped between the card's "
+          f"float32 and the float64 trajectory {flips} of "
+          f"{CHANNELS * N_FLAGSHIP}; envelope_adjoint on the card's own "
+          f"trajectory vs plain f64 {snr_own:.1f} dB; forward {fwd_ms:.4f} "
+          f"ms, forward + backward {fb_ms:.4f} ms (means of 10) ({gpu})")
+    assert snr_dx >= 80 and snr_dg >= 80 and snr_own >= 100
+
+    # 7c. the example's 3-band EQ fit through diff.py's designers and
+    # sos_magnitude_db, 800 Adam steps at lr 0.05
+    freqs_eq = np.geomspace(30.0, 20000.0, 128)
+    hidden = np.stack([design.low_shelf(150.0, 3.0, 0.8, SR),
+                       design.peak(1200.0, -6.0, 2.0, SR),
+                       design.high_shelf(8000.0, 4.5, 0.7, SR)])
+    target_db = torch.as_tensor(20.0 * np.log10(np.abs(
+        sos_response(hidden, freqs_eq, SR))), device=dev)
+    freqs_t = torch.as_tensor(freqs_eq, device=dev)
+    # diff.py runs on the card unless told otherwise: Python numbers
+    # alone design there, and host coefficients follow the card's freqs
+    assert diff.peak(1200.0, -6.0, 2.0, SR).device.type == "cuda"
+    assert diff.sos_magnitude_db(hidden, freqs_t, SR).device == freqs_t.device
+
+    def eq_build(raw):
+        return torch.stack([
+            diff.low_shelf(diff.constrain(raw[0], 40.0, 800.0),
+                           12.0 * torch.tanh(raw[1]),
+                           diff.constrain(raw[2], 0.3, 4.0), SR),
+            diff.peak(diff.constrain(raw[3], 300.0, 6000.0),
+                      12.0 * torch.tanh(raw[4]),
+                      diff.constrain(raw[5], 0.3, 6.0), SR),
+            diff.high_shelf(diff.constrain(raw[6], 2000.0, 16000.0),
+                            12.0 * torch.tanh(raw[7]),
+                            diff.constrain(raw[8], 0.3, 4.0), SR)])
+
+    raw_eq = torch.zeros(9, device=dev, requires_grad=True)
+    opt_eq = torch.optim.Adam([raw_eq], lr=0.05)
+
+    def eq_step():
+        opt_eq.zero_grad()
+        loss = torch.mean((diff.sos_magnitude_db(eq_build(raw_eq), freqs_t, SR)
+                           - target_db) ** 2)
+        loss.backward()
+        opt_eq.step()
+
+    eq_ms, eq_launches = counted(lambda: events_ms(eq_step, 800))
+    with torch.no_grad():
+        eq_err = float(torch.max(torch.abs(diff.sos_magnitude_db(
+            eq_build(raw_eq), freqs_t, SR) - target_db)))
+    print(f"train EQ fit (3 bands, 128 frequencies), 800 Adam steps at lr "
+          f"0.05: max response error {eq_err:.4f} dB, {eq_ms:.4f} ms per step "
+          f"(CUDA events), kernel launches {sum(eq_launches.values())} ({gpu})")
+    assert eq_err < 0.5
+
+    for name, k in kernels.items():
+        k["by_path"]["train"] = train_counts[name]
+        k["launches"] = sum(k["by_path"].values())
+    print(f"train launches: {json.dumps(train_counts)}; phase "
+          f"{time.perf_counter() - t_train:.2f} s")
+    assert all(train_counts[name] > 0 for name in (
+        "biquad_cascade", "envelope", "fdl_conv", "envelope_adjoint",
+        "fdl_spectra_adjoint")), train_counts
+
+    # -- 8. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],
@@ -1122,7 +1614,7 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": k["library_ms"], "checked": True,
         **{key: k[key] for key in ("library_ms_by_shape", "ms_by_shape",
-                                   "counts_by_path") if key in k}}
+                                   "counts_by_path", "dv_fft_ms") if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))
     print(gpu)

@@ -4,9 +4,11 @@
   `algodsp_tpu`, and no file of the port (nor chip_smoke.py) imports them.
 - Entry points raise when no CUDA device exists and none is named.
 - Kernel wrappers given a CUDA tensor launch the kernel or raise: they
-  never fall back to their plain versions, and they refuse a tensor that
-  requires grad (their backward is not ported yet) instead of cutting
-  the gradient.
+  never fall back to their plain versions. The cascade (zero state),
+  envelope and FDL calls go through their autograd Functions; the calls
+  with no backward on the card yet (the Moog ladders, the explicit-state
+  cascade, the raw envelope kernel) refuse a tensor that requires grad
+  instead of cutting the gradient.
 """
 
 import ast
@@ -41,8 +43,10 @@ def _port_modules():
 
 
 def test_import_leaves_jax_out():
+    modules = list(_port_modules())
+    assert "algodsp_tpu_torch.diff" in modules
     code = ("import importlib, sys\n"
-            f"for m in {list(_port_modules())!r}:\n"
+            f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'algodsp_tpu' or m.startswith('algodsp_tpu.')]\n"
@@ -108,6 +112,7 @@ class _FakeCuda:
         return self
 
     contiguous = reshape
+    to = reshape
 
 
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
@@ -142,37 +147,56 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_grad(monkeypatch):
-    """A CUDA call on a tensor that requires grad raises before any
-    launch (the kernels write fresh tensors, so the gradient would be cut
-    without a word); under no_grad it goes on to the launch. The CPU
-    paths stay differentiable."""
+    """On a CUDA tensor that requires grad, the calls with a backward
+    (the zero-state cascade, the FDL in either argument, fftconvolve's
+    FDL branch with its kernel's spectra made differentiably) go on to
+    their launch; the calls with none on the card (the Moog ladders,
+    the explicit-state cascade, the raw envelope kernel) raise before
+    any launch, since the kernels write fresh tensors and the gradient
+    would be cut without a word. Under no_grad those go on to the
+    launch too. The CPU paths stay differentiable."""
     def no_kernel(name):
         raise RuntimeError(f"no kernel library {name}")
 
+    def spectra_from(b, B, P):
+        raise RuntimeError(f"spectra of a kernel that requires grad "
+                           f"{b.requires_grad}, B={B}, P={P}")
+
     monkeypatch.setattr(_build, "load", no_kernel)
+    monkeypatch.setattr(conv, "kernel_spectra_torch", spectra_from)
     g = lambda *shape: _FakeCuda(*shape, requires_grad=True)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
     params = [0.1, 0.2, 0.5, 1.0, 1.0]
-    calls = [
-        lambda: bq.biquad_cascade(g(2, 256), sos),
+    refused = [
+        lambda: bq.biquad_cascade(g(2, 256), sos, state=_FakeCuda(2, 1, 4)),
         lambda: bq.biquad_cascade(_FakeCuda(2, 256), sos,
                                   state=g(2, 1, 4)),
         lambda: envscan.envelope_scan_kernel(g(2, 256), None, None, None),
         lambda: envscan.envelope_scan_kernel(_FakeCuda(2, 256), None,
                                              g(2), None),
-        lambda: fdlconv.fdl_conv(g(2, 256), _FakeCuda(3, 129, 2), 128),
-        lambda: fdlconv.fdl_conv(_FakeCuda(2, 256), g(3, 129, 2), 128),
         lambda: moog.moog_ladder(g(2, 256), _FakeCuda(8, 2), params),
         lambda: moog.moog_zdf(_FakeCuda(2, 256), g(8, 2), params),
-        lambda: conv.fftconvolve(_FakeCuda(2, 8192),
-                                 torch.ones(5000, requires_grad=True)),
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="no backward yet"):
+    for call in refused:
+        with pytest.raises(NotImplementedError, match="no backward on the card"):
+            call()
+    launched = [
+        ("biquad_cascade", lambda: bq.biquad_cascade(g(2, 256), sos)),
+        ("fdlconv", lambda: fdlconv.fdl_conv(g(2, 256), _FakeCuda(3, 129, 2),
+                                             128)),
+        ("fdlconv", lambda: fdlconv.fdl_conv(_FakeCuda(2, 256), g(3, 129, 2),
+                                             128)),
+        ("requires grad True, B=8192, P=1", lambda: conv.fftconvolve(
+            _FakeCuda(2, 8192), g(5000))),
+    ]
+    for match, call in launched:
+        with pytest.raises(RuntimeError, match=match):
             call()
     with torch.no_grad():
         with pytest.raises(RuntimeError, match="no kernel library moog"):
             moog.moog_ladder(g(2, 256), _FakeCuda(8, 2), params)
+        with pytest.raises(RuntimeError, match="no kernel library biquad"):
+            bq.biquad_cascade(g(2, 256), sos, state=_FakeCuda(2, 1, 4))
     x = torch.ones(2, 64, dtype=torch.float64, requires_grad=True)
     _, y = moog.moog_ladder(x, torch.zeros(8, 2, dtype=torch.float64), params)
     y.sum().backward()
