@@ -144,11 +144,11 @@ def refuse_grad(what: str, missing: str, *tensors) -> None:
 
     The kernels write into fresh tensors through ctypes, so a result
     would carry no `grad_fn`: a gradient would be cut without a word.
-    The cascade (zero state), envelope and FDL calls go through their
-    Functions; what is left (the Moog ladders until their adjoint
-    kernels land, the explicit-state cascade, the raw envelope kernel)
-    raises on a CUDA tensor that requires grad when grad mode is on.
-    `missing` names what is missing. CPU tensors run the plain,
+    The cascade (zero state), envelope, FDL and Moog calls go through
+    their Functions; the two calls left, which have no Pallas VJP in the
+    reference either (the explicit-state cascade and the raw envelope
+    kernel), raise on a CUDA tensor that requires grad when grad mode is
+    on. `missing` names what is missing. CPU tensors run the plain,
     differentiable versions and never come here."""
     if wants_grad(*tensors):
         raise NotImplementedError(

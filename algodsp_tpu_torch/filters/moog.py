@@ -11,7 +11,10 @@ as in the reference (`moog.go:800-853`).
 The ladder is a per-sample nonlinear feedback recurrence. On the card
 every call runs one of the two CUDA kernels of `ops/moog.py` (K5 for the
 classic family and Huovilainen, K6 for ZDF) over all of its samples;
-CPU tensors run their plain per-sample versions.
+CPU tensors run their plain per-sample versions. `process` is
+differentiable in x and in the dict state (`MoogLadderFn`, `MoogZDFFn`:
+the reference's custom VJP; its backward runs the adjoint kernels on the
+card), also across blocks with the state carried between them.
 """
 
 from __future__ import annotations
@@ -117,7 +120,9 @@ class MoogFilter:
 
     def _run(self, state, x_run, os: int = 1):
         """The ladder over x_run (..., T) at oversampling `os` from the
-        dict state."""
+        dict state. The state rows are stacked and broadcast onto the
+        channel axis differentiably, so the gradient of state8 reaches the
+        dict (summed over a broadcast)."""
         lead, t = x_run.shape[:-1], x_run.shape[-1]
         xf = x_run.reshape(-1, t).contiguous()
         c = xf.shape[0]
@@ -144,7 +149,7 @@ class MoogFilter:
         sample `os` times with the input applied on the first tick and
         the last tick's output kept (zero-stuff + decimate semantics),
         inside the kernel (or its plain version): x is read and y written
-        at the base rate."""
+        at the base rate. Differentiable in x and state."""
         if x.shape[-1] == 0:
             return state, x
         return self._run(state, x, self.oversampling)

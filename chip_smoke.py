@@ -21,12 +21,17 @@ Phases, each printing its own lines:
                in float32 and float64 with scalar and per-channel
                ballistics, a broadcast env0, T = 1, a T that is no chunk
                multiple and C = 65; the FDL spectra adjoint with C = 1,
-               an odd C and P > F) and each autograd Function's
+               an odd C and P > F; the Moog adjoints (A4) at the chain
+               block, the direct ZDF block, C = 65, T = 1, T = 333, os 1,
+               2, 4 and 8, newton 1-8, float64, the clip case, a
+               Huovilainen state whose tanh rows are not tanh(ds s) and
+               NaN in x, each with its recomputed final state against
+               the forward's bit for bit) and each autograd Function's
                gradients on the card against the CPU path's, then one
                check per fault of the port (ROADMAP.md section 3): the
-               Moog wrappers and the explicit-state cascade refuse a
-               CUDA tensor that requires grad while the cascade,
-               envelope, FDL and fftconvolve calls carry a grad_fn, a
+               explicit-state cascade and the raw envelope kernel refuse
+               a CUDA tensor that requires grad while the cascade,
+               envelope, FDL, fftconvolve and Moog calls carry a grad_fn, a
                float64 Compressor with sidechain prefilters (and the
                gradient of a float32 one), a 70-section float32 chain in
                auto mode, and envelope_scan with T = 0;
@@ -53,8 +58,9 @@ Phases, each printing its own lines:
                folded shape) and device time per launch (profiler) of
                K1, K3 and K4, the reverb's two streaming paths, the
                chain's time per block and real-time factor, the two
-               Moog kernels at 128 ch x 2^16, and the two adjoint
-               kernels at the training shapes.
+               Moog kernels at 128 ch x 2^16, the two adjoint kernels at
+               the training shapes, and the two Moog adjoints at the
+               chain block, the ZDF block and 128 ch x 2^16.
   7. train   — the trainer of examples/gradient_eq_fit.py at the
                flagship's width with torch.optim.Adam: IR learning of
                the flagship's 2^15-tap IR through kernel_spectra_torch
@@ -63,6 +69,15 @@ Phases, each printing its own lines:
                gain, and the 3-band EQ fit through diff.py (800 steps);
                each held against the CPU path in float64 or the
                example's own bar, with the launches of the backward;
+  8. moog grad — the Moog gradient path: the chain's filter-moog node
+               (Huovilainen, os 4) and the direct ZDF ladder streamed
+               over 64 ch x 94 blocks of 512 under autograd with the
+               state carried, differentiated in x and the initial state
+               (one adjoint launch a block, no plain version), held
+               against the card's float64 run and, for 2 blocks, the CPU
+               plain path in float64; and a fit of an input gain in front
+               of the chain's node over 8 streamed blocks (Adam);
+  9. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -121,6 +136,19 @@ MOOG_STEP_OPS = {"classic": 26, "huovilainen": 34}
 
 def zdf_step_ops(newton_iters: int) -> int:
     return 8 + 1 + 42 * newton_iters + 37 + 8 + 1
+
+
+# Operations a reverse step of the A4 adjoints adds to the forward's: a
+# ladder step records 4 tanh slopes (3 each), 4 clip masks (2) and its
+# two products (4), and sweeps 12 multiplies and FMAs and its 5 state
+# updates; a ZDF step reverses each of its newton_iters + 1 passes (23)
+# and each Newton update (Jacobian products and slopes, 26), and its
+# clips and stage slopes (24).
+MOOG_ADJ_REVERSE_OPS = 12 + 8 + 4 + 12 + 5
+
+
+def zdf_adjoint_reverse_ops(newton_iters: int) -> int:
+    return 23 * (newton_iters + 1) + 26 * newton_iters + 24
 
 
 def card() -> str:
@@ -271,6 +299,39 @@ def moog_call(moog_ops, mf, x, st8, plain=False, os=None):
               huovilainen=mf.variant.value == "huovilainen", os=os)
 
 
+def moog_adjoint_call(moog_ops, mf, x, st8, gy, gst, plain=False,
+                      return_state=False):
+    """The A4 adjoint wrapper (or its plain reverse sweep) for MoogFilter
+    `mf` at its oversampling: (dx, dstate8[, final state8])."""
+    p, os = mf.kernel_params(), mf.oversampling
+    if mf.variant.value == "zdf":
+        fn = (moog_ops.moog_zdf_adjoint_plain if plain
+              else moog_ops.moog_zdf_adjoint)
+        return fn(x, st8, p, gy, gst, newton_iters=mf.newton_iters, os=os,
+                  return_state=return_state)
+    fn = (moog_ops.moog_ladder_adjoint_plain if plain
+          else moog_ops.moog_ladder_adjoint)
+    return fn(x, st8, p, gy, gst, fast_tanh="lightweight" in mf.variant.value,
+              huovilainen=mf.variant.value == "huovilainen", os=os,
+              return_state=return_state)
+
+
+def moog_adjoint_work(c, t, ops_per_step, os=1):
+    """Bytes (x, gy in, dx out at the base rate; state8, its cotangent in,
+    dstate8 out) and operations (the forward step's and the reverse's) of
+    a Moog adjoint over (C, T) float32 at oversampling os."""
+    return 12.0 * c * t + 96.0 * c, float(ops_per_step) * c * t * os
+
+
+def chain_moog_node(MoogFilter, MoogVariant):
+    """The `filter-moog` node of CHAIN_GRAPH as chain/registry.py builds
+    it: Huovilainen, 1200 Hz, q 2, +6 dB drive, order 8 (oversampling 4),
+    normalized output."""
+    return MoogFilter(SR, variant=MoogVariant.HUOVILAINEN, oversampling=4,
+                      cutoff_hz=1200.0, resonance=2.0,
+                      drive=10.0 ** (6.0 / 20.0), normalize_output=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -347,6 +408,18 @@ def main() -> int:
                                             "(the custom-VJP backward of K1)",
                                 "wrapper": fdlconv.fdl_spectra_adjoint,
                                 "errs": []},
+        "moog_ladder_adjoint": {"route": "cuda",
+                                "source": "algodsp_tpu_torch/csrc/moog.cu",
+                                "replaces": "algodsp_tpu/filters/moog.py:234 "
+                                            "(the custom-VJP backward of K5)",
+                                "wrapper": moog_ops.moog_ladder_adjoint,
+                                "errs": []},
+        "moog_zdf_adjoint": {"route": "cuda",
+                             "source": "algodsp_tpu_torch/csrc/moog.cu",
+                             "replaces": "algodsp_tpu/filters/moog.py:234 "
+                                         "(the custom-VJP backward of K6)",
+                             "wrapper": moog_ops.moog_zdf_adjoint,
+                             "errs": []},
     }
 
     def randn(*shape):
@@ -696,6 +769,122 @@ def main() -> int:
               f"{float(torch.max(torch.abs(y_k.double() - y_64))):.3e}")
         assert finite
 
+    # The Moog adjoint kernels (A4) against their plain reverse sweeps on
+    # host copies of the same inputs: the chain block (the chain's
+    # filter-moog node, Huovilainen at os 4, 64 x 512: 2048 steps a
+    # channel), the direct ZDF block (newton 4, 64 x 512), C = 65 (a
+    # ragged last warp) at T = 1 and T = 333 (no segment multiple), os 1,
+    # 2, 4 and 8, newton 1, 2, 4 and 8, float64, the clip case (DC of 100,
+    # Vt = 20), a Huovilainen state whose tanh rows are not tanh(ds s)
+    # (their cotangent is 0) and NaN in x. Bars on the SNR of the whole
+    # input gradient (dx and dstate8 together): >= 100 dB in float32,
+    # >= 200 dB in float64; each part's SNR and the distance from the
+    # float64 sweep are printed (at T = 1 with os > 1, dx alone is a sum
+    # that cancels to ~1e-4 of its terms). The final state the adjoint's
+    # own walk recomputes equals the forward kernel's st_out bit for bit.
+    def cat(*vs):
+        return np.concatenate([np.asarray(v, np.float64).ravel() for v in vs])
+
+    edge_kw = dict(cutoff_hz=2000.0, resonance=2.0, thermal_voltage=0.5)
+    clip_kw = dict(cutoff_hz=8000.0, resonance=0.5, drive=1.0,
+                   thermal_voltage=20.0)
+    zdf_kw = dict(cutoff_hz=1200.0, resonance=2.0, drive=2.0)
+    f32, f64 = np.float32, np.float64
+    adj_cases = [
+        # label, variant, newton, os, filter kw (None: the chain's node),
+        # (C, T), random state, x offset (the clip case's DC), dtype
+        ("chain block", "huovilainen", 4, 4, None, (CHAIN_CH, CHAIN_BLOCK),
+         False, 0.0, f32),
+        ("chain block float64", "huovilainen", 4, 4, None,
+         (CHAIN_CH, CHAIN_BLOCK), False, 0.0, f64),
+        ("C=65 T=1", "classic", 4, 1, edge_kw, (65, 1), True, 0.0, f32),
+        ("C=65 T=1", "classic_lightweight", 4, 4, edge_kw, (65, 1), True,
+         0.0, f32),
+        ("C=65 T=333", "improved_classic", 4, 2, edge_kw, (65, 333), True,
+         0.0, f32),
+        ("C=3 T=333 tanh rows not tanh(ds s)", "huovilainen", 4, 8, edge_kw,
+         (3, 333), True, 0.0, f32),
+        ("C=65 T=333 float64", "improved_classic_lightweight", 4, 1, edge_kw,
+         (65, 333), True, 0.0, f64),
+        ("clip", "classic", 4, 1, clip_kw, (2, 1024), False, 100.0, f32),
+        ("ZDF block", "zdf", 4, 1, zdf_kw, (CHAIN_CH, CHAIN_BLOCK), False,
+         0.0, f32),
+        ("ZDF block float64", "zdf", 4, 1, zdf_kw, (CHAIN_CH, CHAIN_BLOCK),
+         False, 0.0, f64),
+        ("C=65 T=1", "zdf", 1, 1, edge_kw, (65, 1), True, 0.0, f32),
+        ("C=65 T=1", "zdf", 8, 8, edge_kw, (65, 1), True, 0.0, f32),
+        ("C=65 T=333", "zdf", 4, 2, edge_kw, (65, 333), True, 0.0, f32),
+        ("C=3 T=333", "zdf", 2, 4, edge_kw, (3, 333), True, 0.0, f32),
+        ("clip", "zdf", 4, 1, clip_kw, (2, 1024), False, 100.0, f32)]
+    for label, variant, iters, os_, kw, (c, t), with_state, dc, dtype in \
+            adj_cases:
+        name = "moog_zdf_adjoint" if variant == "zdf" else "moog_ladder_adjoint"
+        mf = (chain_moog_node(MoogFilter, MoogVariant) if kw is None else
+              MoogFilter(SR, variant=MoogVariant(variant), newton_iters=iters,
+                         oversampling=os_, **kw))
+        as_dev = lambda v: torch.as_tensor(np.asarray(v, dtype), device=dev)
+        xa = as_dev(dc + 0.3 * rng.standard_normal((c, t)))
+        st8 = as_dev(0.2 * rng.standard_normal((8, c)) if with_state
+                     else np.zeros((8, c)))
+        gy, gst = (as_dev(rng.standard_normal(shape))
+                   for shape in ((c, t), (8, c)))
+        with torch.no_grad():
+            s_fwd, _ = moog_call(moog_ops, mf, xa, st8)
+        dx, dst, s_fin = moog_adjoint_call(moog_ops, mf, xa, st8, gy, gst,
+                                           return_state=True)
+        args = [v.cpu() for v in (xa, st8, gy, gst)]
+        p_dx, p_dst = moog_adjoint_call(moog_ops, mf, *args, plain=True)
+        q_dx, q_dst = (moog_adjoint_call(moog_ops, mf, *(v.double() for v in args),
+                                         plain=True)
+                       if dtype == f32 else (p_dx, p_dst))
+        dx, dst = dx.cpu(), dst.cpu()
+        same_state = bool(torch.equal(s_fin, s_fwd))
+        snr_all = snr_db(cat(p_dx, p_dst), cat(dx, dst))
+        snr_dx, snr_dst = snr_db(p_dx.numpy(), dx.numpy()), snr_db(
+            p_dst.numpy(), dst.numpy())
+        snr_64 = snr_db(cat(q_dx, q_dst), cat(dx, dst))
+        err = float(torch.max(torch.abs(dx - p_dx)))
+        kernels[name]["errs"].append(err)
+        if variant == "huovilainen":
+            exact = bool(torch.all(dst[4:7] == 0))
+        elif variant == "zdf":
+            exact = bool(torch.equal(dst[4:7], gst[4:7].cpu()))
+        else:
+            exact = bool(torch.all(dst[7] == 0))
+        cut = int(torch.sum(dx == 0)) if dc else None
+        print(f"check {name} {variant} (newton {mf.newton_iters}) {label}: "
+              f"{np.dtype(dtype).name} C={c} T={t} os={mf.oversampling} "
+              f"SNR vs plain {snr_all:.1f} dB (dx {snr_dx:.1f}, dstate8 "
+              f"{snr_dst:.1f}), vs plain f64 {snr_64:.1f} dB, max|err| dx "
+              f"{err:.3e}; unread rows exact {exact}; final state bit-equal "
+              f"to the forward's {same_state}"
+              + (f"; dx exactly 0 at {cut} samples (clip), plain {int(torch.sum(p_dx == 0))}"
+                 if dc else ""))
+        assert snr_all >= (100 if dtype == f32 else 200), (name, label)
+        assert same_state and exact, (name, label)
+    # NaN in x: the gradient is NaN where the plain sweep's is, and only in
+    # the channel the NaN ran through; the other channels within the bar
+    for variant in ("classic", "huovilainen", "zdf"):
+        name = "moog_zdf_adjoint" if variant == "zdf" else "moog_ladder_adjoint"
+        mf = MoogFilter(SR, variant=MoogVariant(variant), **edge_kw)
+        xa = 0.3 * randn(4, 600)
+        xa[0, 100] = float("nan")
+        st8 = torch.zeros(8, 4, device=dev)
+        gy, gst = randn(4, 600), randn(8, 4)
+        dx, dst = (v.cpu() for v in moog_adjoint_call(moog_ops, mf, xa, st8,
+                                                      gy, gst))
+        p_dx, p_dst = moog_adjoint_call(
+            moog_ops, mf, *(v.cpu() for v in (xa, st8, gy, gst)), plain=True)
+        nan_same = bool(torch.equal(torch.isnan(dx), torch.isnan(p_dx))
+                        and torch.equal(torch.isnan(dst), torch.isnan(p_dst)))
+        rest = bool(torch.isfinite(dx[1:]).all() and torch.isfinite(dst[:, 1:]).all())
+        snr_rest = snr_db(cat(p_dx[1:], p_dst[:, 1:]), cat(dx[1:], dst[:, 1:]))
+        print(f"check {name} {variant} NaN in x: NaN where plain has NaN "
+              f"{nan_same} ({int(torch.isnan(dx).sum())} of dx's "
+              f"{dx.numel()}), other channels finite {rest}, SNR vs plain "
+              f"{snr_rest:.1f} dB")
+        assert nan_same and rest and snr_rest >= 100, (name, variant)
+
     # The FIR's direct path (<= 64 taps) is elementwise float32 on the
     # card; a cuDNN conv1d in TF32 (about three decimal digits) would fall
     # far below the bar here. Above 4096 taps its fftconvolve runs the FDL
@@ -851,24 +1040,25 @@ def main() -> int:
     # check each.
     # Fault 1: a CUDA tensor that requires grad. The kernels write fresh
     # tensors, so a result would carry no grad_fn. The cascade from zero
-    # state, the envelope, the FDL and fftconvolve's FDL branch (for its
-    # kernel too) go through their autograd Functions and carry one; the
-    # calls with no backward on the card yet (the Moog ladders, until
-    # their adjoint kernels land, and the explicit-state cascade, which
-    # the reference cannot differentiate through Pallas either) refuse
-    # instead. Under no_grad those run.
+    # state, the envelope, the FDL, fftconvolve's FDL branch (for its
+    # kernel too) and the Moog ladders (in x and in the state) go through
+    # their autograd Functions and carry one; the two calls with no
+    # backward on the card (the explicit-state cascade and the raw
+    # envelope kernel, which the reference cannot differentiate through
+    # Pallas either) refuse instead. Under no_grad those run.
     xg = randn(2, 1024).requires_grad_()
     st8g = torch.zeros(8, 2, device=dev)
     hg = torch.as_tensor(fdlconv.kernel_spectra(rng.standard_normal(600), 256),
                          device=dev)
     pg = MoogFilter(SR).kernel_params()
     st_bq = torch.zeros(2, cascade.num_runtime_sections, 4, device=dev)
+    zg = torch.zeros(2, device=dev)
     refused = []
     for label, call in [
-            ("moog_ladder", lambda: moog_ops.moog_ladder(xg, st8g, pg)),
-            ("moog_zdf", lambda: moog_ops.moog_zdf(xg, st8g, pg)),
             ("biquad_cascade with a state", lambda: bqmod.biquad_cascade(
-                xg, cascade.runtime_sos, cascade.gain, st_bq))]:
+                xg, cascade.runtime_sos, cascade.gain, st_bq)),
+            ("envelope_scan_kernel", lambda: envscan.envelope_scan_kernel(
+                torch.abs(xg), zg, zg + 0.1, zg + 0.01))]:
         try:
             call()
         except NotImplementedError:
@@ -882,17 +1072,21 @@ def main() -> int:
             ("fdl_conv", lambda: fdlconv.fdl_conv(xg, hg, 256)),
             ("fftconvolve kernel", lambda: fftconvolve(
                 randn(2, 8192), torch.ones(5000, device=dev,
-                                           requires_grad=True)))]:
+                                           requires_grad=True))),
+            ("moog_ladder", lambda: moog_ops.moog_ladder(xg, st8g, pg)[1]),
+            ("moog_zdf state", lambda: moog_ops.moog_zdf(
+                xg.detach(), st8g.clone().requires_grad_(), pg)[0])]:
         out = call()
         carried[label] = type(out.grad_fn).__name__ if out.grad_fn else None
     with torch.no_grad():
-        _, y_ng = moog_ops.moog_ladder(xg, st8g, pg)
+        _, y_ng = envscan.envelope_scan_kernel(torch.abs(xg), zg, zg + 0.1,
+                                               zg + 0.01)
         y_st, _ = bqmod.biquad_cascade(xg, cascade.runtime_sos, cascade.gain,
                                        st_bq)
     print(f"check fault 1 (requires_grad on the card): refused by "
           f"{', '.join(refused)}; grad_fn {json.dumps(carried)}; under "
           f"no_grad runs {tuple(y_ng.shape)} and {tuple(y_st.shape)}")
-    assert len(refused) == 3 and all(carried.values()), (refused, carried)
+    assert len(refused) == 2 and all(carried.values()), (refused, carried)
     assert y_ng.shape == xg.shape and y_st.shape == xg.shape
     # Fault 2: a float64 Compressor with sidechain prefilters on the card
     comp_sc = convert.compressor_from_config({
@@ -966,7 +1160,8 @@ def main() -> int:
           f"counts {json.dumps(env_counts['flagship'])}")
     assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1,
                         "moog_ladder": 0, "moog_zdf": 0,
-                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0}, launches
+                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
+                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0}, launches
     assert env_counts["flagship"]["exact_walks"] == 0
 
     pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
@@ -1010,7 +1205,8 @@ def main() -> int:
     assert launches == {"biquad_cascade": CHAIN_BLOCKS,
                         "envelope": CHAIN_BLOCKS, "fdl_conv": CHAIN_BLOCKS,
                         "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0,
-                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0}, launches
+                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
+                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0}, launches
     n8 = 8 * CHAIN_BLOCK
     chain_cpu = Chain(SR)
     chain_cpu.load_graph(raw)
@@ -1045,7 +1241,8 @@ def main() -> int:
           f"{CHAIN_CH}x{CHAIN_BLOCK}: {json.dumps(launches)}")
     assert launches == {"biquad_cascade": 0, "envelope": 0, "fdl_conv": 0,
                         "moog_ladder": 0, "moog_zdf": CHAIN_BLOCKS,
-                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0}, launches
+                        "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
+                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0}, launches
     _, yz_cpu = streaming.scan_blocks(
         zdf.process, zdf.init_state((CHAIN_CH,), device="cpu"),
         torch.as_tensor(xz_np[:, :n8]), block_size=CHAIN_BLOCK)
@@ -1352,19 +1549,58 @@ def main() -> int:
               f"{k['bound_ms']:.6f} ms ({k['bound_by']}), plain "
               f"{k['plain_ms']:.4f} ms, library none ({gpu})")
 
+    # the A4 adjoints at the shapes the gradient paths give them: one chain
+    # block (Huovilainen at os 4) and one direct ZDF block (newton 4), with
+    # the checkpoint scratch each allocates (one state8 a segment); their
+    # plain reverse sweeps on the card at the same shapes, once
+    def adjoint_scratch(mf, c, t):
+        rec = (moog_ops.zdf_record(mf.newton_iters)
+               if mf.variant.value == "zdf" else moog_ops.LADDER_RECORD)
+        seg = moog_ops.adjoint_plan(rec, 4)
+        return seg, -(-t * mf.oversampling // seg) * 8 * c * 4
+
+    gy_m, gst_m = randn(CHAIN_CH, CHAIN_BLOCK), randn(8, CHAIN_CH)
+    for name, fwd_name, mf, xa, ops in [
+            ("moog_ladder_adjoint", "moog_ladder", moog_fx, xm,
+             MOOG_STEP_OPS["huovilainen"] + MOOG_ADJ_REVERSE_OPS),
+            ("moog_zdf_adjoint", "moog_zdf", zdf, xz1,
+             zdf_step_ops(4) + zdf_adjoint_reverse_ops(4))]:
+        k = kernels[name]
+        adj = lambda mf=mf, xa=xa, plain=False: moog_adjoint_call(
+            moog_ops, mf, xa, st8m, gy_m, gst_m, plain=plain)
+        k["ms_at"] = kernels[fwd_name]["ms_at"]
+        k["ms"] = graph_ms(torch, adj, 20)
+        k["call_ms"] = time_ms(torch, adj, 20)
+        k["plain_ms"] = time_ms(torch, lambda adj=adj: adj(plain=True), 1,
+                                warmup=0)
+        k["bound_ms"], k["bound_by"] = bound(*moog_adjoint_work(
+            CHAIN_CH, CHAIN_BLOCK, ops, mf.oversampling))
+        k["library_ms"] = None
+        seg, k["scratch_bytes"] = adjoint_scratch(mf, CHAIN_CH, CHAIN_BLOCK)
+        print(f"time {name} {k['ms_at']}: kernel {k['ms']:.4f} ms (graph "
+              f"replay; {k['call_ms']:.4f} ms as back-to-back calls; "
+              f"{k['ms'] / kernels[fwd_name]['ms']:.2f}x the forward's), "
+              f"bound {k['bound_ms']:.6f} ms ({k['bound_by']}; {ops} "
+              f"operations a step), plain {k['plain_ms']:.4f} ms, library "
+              f"none; segments of {seg} steps, checkpoint scratch "
+              f"{k['scratch_bytes']} bytes ({gpu})")
+
     # K5 (classic) and K6 at the JAX package's benchmark shape, 128 x 2^16
-    # (benchmarks/run_benchmarks.py:396-405); the plain versions on the
-    # card at 128 x 256, one Python step per sample
+    # (benchmarks/run_benchmarks.py:396-405), and their adjoints; the plain
+    # forward versions on the card at 128 x 256, one Python step per sample
     cm, tm = 128, 1 << 16
     xw = randn(cm, tm)
     stw = torch.zeros(8, cm, device=dev)
-    for label, mf, ops in [
+    gyw, gstw = randn(cm, tm), randn(8, cm)
+    for label, mf, ops, adj_ops in [
             ("moog_ladder classic", MoogFilter(SR, cutoff_hz=2000.0,
                                                resonance=0.5),
-             MOOG_STEP_OPS["classic"]),
+             MOOG_STEP_OPS["classic"],
+             MOOG_STEP_OPS["classic"] + MOOG_ADJ_REVERSE_OPS),
             ("moog_zdf newton 4", MoogFilter(
                 SR, variant=MoogVariant.ZDF, cutoff_hz=2000.0, resonance=0.5,
-                newton_iters=4), zdf_step_ops(4))]:
+                newton_iters=4), zdf_step_ops(4),
+             zdf_step_ops(4) + zdf_adjoint_reverse_ops(4))]:
         t_graph = graph_ms(torch, lambda: moog_call(moog_ops, mf, xw, stw), 3)
         t_call = time_ms(torch, lambda: moog_call(moog_ops, mf, xw, stw), 3,
                          warmup=1)
@@ -1376,6 +1612,18 @@ def main() -> int:
               f"{t_graph / tm * 1e6:.2f} ns per dependent step, bound "
               f"{b_ms:.6f} ms ({b_by}; {ops} operations a step), plain "
               f"{t_plain:.4f} ms at {cm}x256 ({gpu})")
+        adj = lambda: moog_adjoint_call(moog_ops, mf, xw, stw, gyw, gstw)
+        a_graph = graph_ms(torch, adj, 3)
+        a_b, a_by = bound(*moog_adjoint_work(cm, tm, adj_ops))
+        seg, scratch = adjoint_scratch(mf, cm, tm)
+        ka_w = kernels["moog_zdf_adjoint" if mf.variant.value == "zdf"
+                       else "moog_ladder_adjoint"]
+        ka_w["ms_by_shape"] = {"path block": ka_w["ms"], f"{cm}x{tm}": a_graph}
+        print(f"time {label} adjoint {cm}x{tm}: kernel {a_graph:.4f} ms "
+              f"(graph replay; {a_graph / t_graph:.2f}x the forward's), "
+              f"{a_graph / tm * 1e6:.2f} ns per step, bound {a_b:.6f} ms "
+              f"({a_by}), segments of {seg} steps, checkpoint scratch "
+              f"{scratch} bytes ({gpu})")
 
     # -- 7. train: the trainer of examples/gradient_eq_fit.py ---------------------
     # Each driven part runs inside `counted`, which adds its launches to the
@@ -1597,14 +1845,161 @@ def main() -> int:
 
     for name, k in kernels.items():
         k["by_path"]["train"] = train_counts[name]
-        k["launches"] = sum(k["by_path"].values())
     print(f"train launches: {json.dumps(train_counts)}; phase "
           f"{time.perf_counter() - t_train:.2f} s")
     assert all(train_counts[name] > 0 for name in (
         "biquad_cascade", "envelope", "fdl_conv", "envelope_adjoint",
         "fdl_spectra_adjoint")), train_counts
 
-    # -- 8. kernel list ----------------------------------------------------------
+    # -- 8. moog gradient: the Moog ladders differentiated on the card --------------
+    # The chain's filter-moog node (Huovilainen at os 4) and the direct ZDF
+    # ladder of phase 5, each streamed over 64 ch x 94 blocks of 512 under
+    # autograd with the state carried from block to block, from a random
+    # state; loss sum(y w) + sum(final stages v), differentiated in x and in
+    # the initial state. Held: the float32 gradients against the card's
+    # float64 run at 80 dB (tests/test_diff.py's bar), and the first 2
+    # blocks against the CPU plain path in float64. Then a fit: a scalar
+    # input gain in front of the chain's node, from 1.0 to the 1.7 that made
+    # the target, over 8 streamed blocks with torch.optim.Adam. Only the
+    # float32 runs on the card count as the path's launches.
+    t_mg = time.perf_counter()
+    mg_counts = {name: 0 for name in kernels}
+    moog_plain = [(moog_ops, n) for n in (
+        "moog_ladder_plain", "moog_zdf_plain", "moog_ladder_adjoint_plain",
+        "moog_zdf_adjoint_plain")]
+
+    def mg_counted(fn):
+        before = {name: k["wrapper"].launches for name, k in kernels.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {name: k["wrapper"].launches - before[name]
+                 for name, k in kernels.items()}
+        for name, d in delta.items():
+            mg_counts[name] += d
+        return out, delta
+
+    mg_rng = np.random.default_rng(5)
+    x_mg = xc_np                       # the chain's input, 64 x 94 blocks
+    w_mg = mg_rng.standard_normal(x_mg.shape).astype(np.float32)
+    v_mg = mg_rng.standard_normal((CHAIN_CH, 4)).astype(np.float32)
+    st_mg = {"stage": 0.2 * mg_rng.standard_normal((CHAIN_CH, 4)),
+             "tanh_last": 0.2 * mg_rng.standard_normal((CHAIN_CH, 3)),
+             "prev_out": 0.2 * mg_rng.standard_normal(CHAIN_CH)}
+
+    def stream_loss(mf, blocks, device, dtype):
+        """The streamed forward of the loss; returns (loss, x, state0)."""
+        as_t = lambda v: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                         device=device)
+        n = blocks * CHAIN_BLOCK
+        x_t = as_t(x_mg[:, :n]).requires_grad_()
+        st0 = {k: as_t(v).requires_grad_() for k, v in st_mg.items()}
+        state = st0
+        ys = []
+        for b in range(blocks):
+            state, y_b = mf.process(state, x_t[:, b * CHAIN_BLOCK:
+                                               (b + 1) * CHAIN_BLOCK])
+            ys.append(y_b)
+        loss = (torch.sum(torch.cat(ys, -1) * as_t(w_mg[:, :n]))
+                + torch.sum(state["stage"] * as_t(v_mg)))
+        return loss, x_t, st0
+
+    def grads(loss, x_t, st0):
+        loss.backward()
+        return [host(x_t.grad)] + [host(st0[k].grad) for k in
+                                   ("stage", "tanh_last", "prev_out")]
+
+    mg_names = ("dx", "dstage", "dtanh_last", "dprev_out")
+    for label, mf, fwd_name in [("chain filter-moog node", moog_fx,
+                                 "moog_ladder"),
+                                ("ZDF MoogFilter", zdf, "moog_zdf")]:
+        adj_name = fwd_name + "_adjoint"
+        with plain_calls(moog_plain) as plain_n:
+            (loss_m, x_t, st0), fwd_l = mg_counted(
+                lambda: stream_loss(mf, CHAIN_BLOCKS, dev, torch.float32))
+            g32, bwd_l = mg_counted(lambda: grads(loss_m, x_t, st0))
+        print(f"moog grad {label} {CHAIN_CH}x{CHAIN_BLOCKS * CHAIN_BLOCK} in "
+              f"{CHAIN_BLOCKS} blocks: launches forward {json.dumps(fwd_l)}, "
+              f"backward {json.dumps(bwd_l)}; plain versions called "
+              f"{sum(plain_n.values())} times")
+        assert fwd_l == {**no_kernel, fwd_name: CHAIN_BLOCKS}, fwd_l
+        assert bwd_l == {**no_kernel, adj_name: CHAIN_BLOCKS}, bwd_l
+        assert not any(plain_n.values()), plain_n
+        assert loss_m.grad_fn is not None
+        g64 = grads(*stream_loss(mf, CHAIN_BLOCKS, dev, torch.float64))
+        snr64 = [snr_db(r, g) for r, g in zip(g64, g32)]
+        finite = all(np.all(np.isfinite(g)) for g in g32)
+        g2 = grads(*stream_loss(mf, 2, dev, torch.float32))
+        g2_cpu = grads(*stream_loss(mf, 2, "cpu", torch.float64))
+        snr_cpu = [snr_db(r, g) for r, g in zip(g2_cpu, g2)]
+        # Huovilainen never reads the tanh rows; ZDF passes them through to
+        # a final state the loss does not weigh
+        exact = not np.any(g32[2])
+        mg_ms = time_ms(torch, lambda: grads(*stream_loss(
+            mf, CHAIN_BLOCKS, dev, torch.float32)), 3, warmup=1)
+        # ZDF's d(prev_out) is the sensitivity to the Newton starting guess,
+        # ~0: its size is printed, not an SNR
+        n_snr = 3 if fwd_name == "moog_zdf" else 4
+        prev_size = ("" if n_snr == 4 else
+                     f"; max|dprev_out| float32 {np.max(np.abs(g32[3])):.1e}, "
+                     f"float64 {np.max(np.abs(g64[3])):.1e} (max|dx| "
+                     f"{np.max(np.abs(g64[0])):.1e})")
+        print(f"moog grad {label}: float32 vs the card's float64 "
+              + ", ".join(f"{n} {v:.1f}" for n, v in
+                          zip(mg_names[:n_snr], snr64))
+              + " dB; first 2 blocks vs the CPU plain path in float64 "
+              + ", ".join(f"{v:.1f}" for v in snr_cpu[:n_snr]) + " dB"
+              + prev_size + f"; finite "
+              f"{finite}; d(tanh_last) exactly 0 {exact}; forward + backward "
+              f"{mg_ms:.4f} ms ({mg_ms / CHAIN_BLOCKS:.4f} ms per block, "
+              f"mean of 3) ({gpu})")
+        assert finite and exact
+        assert min(snr64[:2]) >= 80 and min(snr_cpu[:2]) >= 80, (label,
+                                                                   snr64)
+
+    # the fit: y = node(g x) over 8 streamed blocks from zero state against
+    # node(1.7 x); Adam on g from 1.0
+    n_fit, steps_fit, g_true = 8 * CHAIN_BLOCK, 200, 1.7
+    x_fit = torch.as_tensor(x_mg[:, :n_fit], device=dev)
+
+    def node_stream(xv):
+        return streaming.scan_blocks(moog_fx.process, moog_fx.init_state(
+            (CHAIN_CH,)), xv, block_size=CHAIN_BLOCK)[1]
+
+    with torch.no_grad():
+        y_fit = node_stream(g_true * x_fit)
+    g_fit = torch.tensor(1.0, device=dev, requires_grad=True)
+    opt_fit = torch.optim.Adam([g_fit], lr=0.02)
+
+    def fit_step():
+        opt_fit.zero_grad()
+        loss = torch.mean((node_stream(g_fit * x_fit) - y_fit) ** 2)
+        loss.backward()
+        opt_fit.step()
+        return loss.detach()
+
+    loss_f0, fit_l = mg_counted(fit_step)
+    fit_ms, _ = mg_counted(lambda: events_ms(fit_step, steps_fit - 2))
+    loss_fl, _ = mg_counted(fit_step)
+    g_val = float(g_fit.detach())
+    g_err = abs(g_val - g_true)
+    print(f"moog grad fit of an input gain in front of the chain's node, "
+          f"{CHAIN_CH}x{n_fit} in 8 blocks, {steps_fit} Adam steps at lr 0.02: "
+          f"g {g_val:.6f}, |g - {g_true}| {g_err:.3e}, loss "
+          f"{float(loss_f0):.6e} -> {float(loss_fl):.6e}, {fit_ms:.4f} ms per "
+          f"step (CUDA events), launches per step {json.dumps(fit_l)} ({gpu})")
+    assert fit_l == {**no_kernel, "moog_ladder": 8, "moog_ladder_adjoint": 8}
+    assert g_err < 1e-3 and float(loss_fl) < float(loss_f0)
+
+    for name, k in kernels.items():
+        k["by_path"]["moog_grad"] = mg_counts[name]
+        k["launches"] = sum(k["by_path"].values())
+    print(f"moog grad launches: {json.dumps(mg_counts)}; phase "
+          f"{time.perf_counter() - t_mg:.2f} s")
+    assert all(mg_counts[name] > 0 for name in (
+        "moog_ladder", "moog_zdf", "moog_ladder_adjoint",
+        "moog_zdf_adjoint")), mg_counts
+
+    # -- 9. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],
@@ -1614,7 +2009,8 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": k["library_ms"], "checked": True,
         **{key: k[key] for key in ("library_ms_by_shape", "ms_by_shape",
-                                   "counts_by_path", "dv_fft_ms") if key in k}}
+                                   "counts_by_path", "dv_fft_ms",
+                                   "scratch_bytes") if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))
     print(gpu)

@@ -5,10 +5,10 @@
 - Entry points raise when no CUDA device exists and none is named.
 - Kernel wrappers given a CUDA tensor launch the kernel or raise: they
   never fall back to their plain versions. The cascade (zero state),
-  envelope and FDL calls go through their autograd Functions; the calls
-  with no backward on the card yet (the Moog ladders, the explicit-state
-  cascade, the raw envelope kernel) refuse a tensor that requires grad
-  instead of cutting the gradient.
+  envelope, FDL and Moog calls go through their autograd Functions; the
+  calls with no backward on the card (the explicit-state cascade, the raw
+  envelope kernel) refuse a tensor that requires grad instead of cutting
+  the gradient.
 """
 
 import ast
@@ -149,12 +149,12 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
 def test_kernel_wrappers_refuse_grad(monkeypatch):
     """On a CUDA tensor that requires grad, the calls with a backward
     (the zero-state cascade, the FDL in either argument, fftconvolve's
-    FDL branch with its kernel's spectra made differentiably) go on to
-    their launch; the calls with none on the card (the Moog ladders,
-    the explicit-state cascade, the raw envelope kernel) raise before
-    any launch, since the kernels write fresh tensors and the gradient
-    would be cut without a word. Under no_grad those go on to the
-    launch too. The CPU paths stay differentiable."""
+    FDL branch with its kernel's spectra made differentiably, the Moog
+    ladders in x or in the state) go on to their launch; the calls with
+    none on the card (the explicit-state cascade, the raw envelope
+    kernel) raise before any launch, since the kernels write fresh
+    tensors and the gradient would be cut without a word. Under no_grad
+    those go on to the launch too. The CPU paths stay differentiable."""
     def no_kernel(name):
         raise RuntimeError(f"no kernel library {name}")
 
@@ -174,8 +174,6 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
         lambda: envscan.envelope_scan_kernel(g(2, 256), None, None, None),
         lambda: envscan.envelope_scan_kernel(_FakeCuda(2, 256), None,
                                              g(2), None),
-        lambda: moog.moog_ladder(g(2, 256), _FakeCuda(8, 2), params),
-        lambda: moog.moog_zdf(_FakeCuda(2, 256), g(8, 2), params),
     ]
     for call in refused:
         with pytest.raises(NotImplementedError, match="no backward on the card"):
@@ -188,6 +186,10 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
                                              128)),
         ("requires grad True, B=8192, P=1", lambda: conv.fftconvolve(
             _FakeCuda(2, 8192), g(5000))),
+        ("no kernel library moog",
+         lambda: moog.moog_ladder(g(2, 256), _FakeCuda(8, 2), params)),
+        ("no kernel library moog",
+         lambda: moog.moog_zdf(_FakeCuda(2, 256), g(8, 2), params)),
     ]
     for match, call in launched:
         with pytest.raises(RuntimeError, match=match):
