@@ -17,6 +17,10 @@
 //     iterations on y3 per sample; rows 4-6 pass through unchanged.
 //     params = [zdf_gk, drive_scale, feedback, input_gain, output_scale].
 //
+// Each has a recording instance (RECORD), which the forward under
+// autograd runs: the same walk, also storing what each step's reverse
+// reads, for the reverse kernels of the A4 section below.
+//
 // Oversampling is fused: each input sample runs os ladder steps, x * os
 // on the first and 0 on the others, and y keeps the last step's output,
 // exactly as the same kernel on the zero-stuffed input (length T * os)
@@ -62,6 +66,8 @@
 // out, so the kernel instances round alike.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #define MOOG_WARP 32
 
@@ -439,11 +445,25 @@ __device__ __forceinline__ void ladder_state_out(T* __restrict__ st_out,
   st_out[7 * C + c] = st.s3;
 }
 
-template <typename T, int MODE, int OS>
+// The record of a recording instance (RECORD): rec (ceil(C / 32) blocks,
+// T * os steps, nv values, 32 lanes), so that a block's record is
+// contiguous and step-major and a warp's store of one value is one
+// 128-byte line. The walking warp stores it straight to global memory,
+// off the step's dependent path; the step's arithmetic is the same
+// template code as without RECORD, so y and the state are bit-equal.
+template <typename T>
+__device__ __forceinline__ T* record_lane(T* rec, long long steps, int nv) {
+  return rec == nullptr ? nullptr
+                        : rec + static_cast<size_t>(blockIdx.x) * steps * nv *
+                                    MOOG_WARP + threadIdx.x;
+}
+
+template <typename T, int MODE, int OS, bool RECORD>
 __global__ void __launch_bounds__(2 * MOOG_WARP)
 moog_ladder_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
                    T* __restrict__ st_out, T* __restrict__ y,
-                   LadderParams<T> p, int C, long long Tn, int os) {
+                   T* __restrict__ rec, LadderParams<T> p, int C, long long Tn,
+                   int os) {
   const int c = blockIdx.x * MOOG_WARP + threadIdx.x;
   const bool live = threadIdx.x < MOOG_WARP && c < C;
   if constexpr (sizeof(T) == 4) {
@@ -452,9 +472,17 @@ moog_ladder_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
   }
   LadderState<T> st{};
   if (live) st = ladder_state_in<T, MODE>(p, st_in, c, C);
+  T* r = RECORD ? record_lane(rec, Tn * os, LADDER_RECORD) : nullptr;
   tiled_walk(x, y, C, Tn, [&](T* row, int len) {
-    walk_row<OS>(row, len, os, p.osf, p.osc,
-                 [&](T xv) { return ladder_step<T, MODE>(p, xv, st); });
+    walk_row<OS>(row, len, os, p.osf, p.osc, [&](T xv) {
+      if constexpr (RECORD) {
+        const T out = ladder_step<T, MODE, true>(p, xv, st, r);
+        r += LADDER_RECORD * MOOG_WARP;
+        return out;
+      } else {
+        return ladder_step<T, MODE>(p, xv, st);
+      }
+    });
   });
   if (live) ladder_state_out(st_out, st, c, C);
 }
@@ -493,8 +521,10 @@ __device__ __forceinline__ T zdf_deriv(const ZdfParams<T>& p, T t) {
 // stages, 4-7 the clip masks of the new ones, 8 + 6 it + (0-3, 4, 5) the
 // four tanh, the Jacobian and the step of Newton iteration it, and
 // 8 + 6 newton_iters + (0-3) the four tanh of the last pass.
+constexpr int ZDF_UPDATE = 6;
+
 __host__ __device__ constexpr int zdf_record(int newton_iters) {
-  return 12 + 6 * newton_iters;
+  return 12 + ZDF_UPDATE * newton_iters;
 }
 
 // One ZDF step; s holds s0..s3, prev the last y3. Returns y3. RECORD also
@@ -532,7 +562,7 @@ __device__ __forceinline__ T zdf_step(const ZdfParams<T>& p, T xv, T (&s)[4],
     // |J| < 1e-15 keeps the estimate; a NaN Jacobian updates it
     const T step = quotient(y3 - y3est, jac);
     if constexpr (RECORD) {
-      T* r = rec + (8 + 6 * it) * MOOG_WARP;
+      T* r = rec + (8 + ZDF_UPDATE * it) * MOOG_WARP;
 #pragma unroll
       for (int i = 0; i < 4; ++i) r[i * MOOG_WARP] = ty[i];
       r[4 * MOOG_WARP] = jac;
@@ -542,7 +572,7 @@ __device__ __forceinline__ T zdf_step(const ZdfParams<T>& p, T xv, T (&s)[4],
   }
   zdf_pass(p, y3est, zin, zinw, K, Kw, ty);
   if constexpr (RECORD) {
-    T* r = rec + (8 + 6 * newton_iters) * MOOG_WARP;
+    T* r = rec + (8 + ZDF_UPDATE * newton_iters) * MOOG_WARP;
 #pragma unroll
     for (int i = 0; i < 4; ++i) r[i * MOOG_WARP] = ty[i];
   }
@@ -560,11 +590,12 @@ __device__ __forceinline__ T zdf_step(const ZdfParams<T>& p, T xv, T (&s)[4],
   return y3;
 }
 
-template <typename T, int OS>
+template <typename T, int OS, bool RECORD>
 __global__ void __launch_bounds__(2 * MOOG_WARP)
 moog_zdf_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
-                T* __restrict__ st_out, T* __restrict__ y, ZdfParams<T> p,
-                int newton_iters, int C, long long Tn, int os) {
+                T* __restrict__ st_out, T* __restrict__ y, T* __restrict__ rec,
+                ZdfParams<T> p, int newton_iters, int C, long long Tn,
+                int os) {
   const int c = blockIdx.x * MOOG_WARP + threadIdx.x;
   const bool live = threadIdx.x < MOOG_WARP && c < C;
   T s[4] = {T(0), T(0), T(0), T(0)};
@@ -574,9 +605,18 @@ moog_zdf_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
     for (int i = 0; i < 4; ++i) s[i] = st_in[i * C + c];
     prev = st_in[7 * C + c];
   }
+  const int nv = zdf_record(newton_iters);
+  T* r = RECORD ? record_lane(rec, Tn * os, nv) : nullptr;
   tiled_walk(x, y, C, Tn, [&](T* row, int len) {
-    walk_row<OS>(row, len, os, p.osf, p.osc,
-                 [&](T xv) { return zdf_step(p, xv, s, prev, newton_iters); });
+    walk_row<OS>(row, len, os, p.osf, p.osc, [&](T xv) {
+      if constexpr (RECORD) {
+        const T out = zdf_step<T, true>(p, xv, s, prev, newton_iters, r);
+        r += nv * MOOG_WARP;
+        return out;
+      } else {
+        return zdf_step(p, xv, s, prev, newton_iters);
+      }
+    });
   });
   if (live) {
 #pragma unroll
@@ -593,26 +633,38 @@ moog_zdf_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
 // zero-stuffed input, the rule of algodsp_tpu/filters/moog.py::
 // _kernel_chunk_diff (its backward is jax.vjp of _run_scan), for the
 // cotangents gy (C, T) of y and gst (8, C) of the new state; they return
-// dx (C, T) and dst (8, C), and on request the final state8 their own
-// walk recomputed (the forward kernel's, bit for bit).
+// dx (C, T) and dst (8, C). Two routes compute it, from the same step
+// code and to the same bits:
 //
-// One warp a block, one lane a channel. Walk 1 runs the forward with the
-// forward's own step code and stores the state every `seg` steps into
-// the checkpoint scratch ck (nseg, 8, C). Walk 2 takes the segments from
-// last to first: it restarts at a checkpoint, walks the segment's steps
-// again recording what each step's reverse reads (LADDER_RECORD or
-// zdf_record values, in shared memory at [step][value][lane]), then
-// sweeps them backward carrying the cotangent of the state. The record
-// comes from the forward's own arithmetic, so the clip masks and tanh
-// values are the forward's. Each lane stages its own channel's x and
-// cotangents of a segment (one per step) in shared memory first, so
-// their loads are issued together and no lane waits on another.
+//   the record route (ops/moog.py, when the record fits its budget): the
+//   forward under autograd is K5 / K6 with RECORD, which stores each
+//   step's record (LADDER_RECORD or zdf_record values) in rec; the
+//   backward is moog_ladder_reverse_kernel / moog_zdf_reverse_kernel,
+//   one reverse sweep over it;
+//   the checkpoint route (moog_ladder_adjoint_kernel /
+//   moog_zdf_adjoint_kernel, for a record over the budget): from (x,
+//   state8) alone, one warp a block, one lane a channel. Walk 1 runs the
+//   forward storing the state every `seg` steps into the checkpoint
+//   scratch ck (nseg, 8, C); walk 2 takes the segments from last to
+//   first, re-walks each from its checkpoint recording in shared memory
+//   at [step][value][lane], and sweeps it backward. On request it returns
+//   the final state8 its walk recomputed (the forward kernel's, bit for
+//   bit).
 //
-// What bounds them: the same dependent chain as the forward, walked twice
-// (checkpoints, then each segment again), plus the reverse chain (a
-// ladder step's is 12 dependent multiplies and FMAs; a ZDF step's
-// reverses each of its newton_iters + 1 passes). Bytes (x, y, cotangents,
-// the scratch) are far below it.
+// The record comes from the forward's own arithmetic, so the clip masks
+// and tanh are the forward's. What bounds the reverse: its dependent
+// chain, a ladder step's 12 multiplies and FMAs and the feedback's two, a
+// ZDF step's reverse of its newton_iters + 1 passes and two quotients by
+// J an update (IEEE divisions on the checkpoint route; on the record
+// route a multiply and two FMAs each, from a reciprocal formed off the
+// chain); the record it streams (36 bytes a ladder step and lane in
+// float32, 48 + 24 newton_iters for ZDF) is far below the card's rate but
+// must arrive a ring ahead (below). Measured on the H100
+// (tools/moog_bench.py, PERF.md): at os >= 2 the walking warp's own
+// instruction stream sets the pace (~60 instructions a ladder step around
+// that chain; the reverse with no memory traffic at all is within 4%), at
+// os 1 the staging warp's gy and dx, one pair of loops a sample. The
+// checkpoint route walks the forward's chain twice more.
 
 // x (scale osf, on a sample's first tick) or gy (scale osc, on its last)
 // of steps [k0, k0 + len) into buf[s * MOOG_WARP], 0 on the other ticks
@@ -640,36 +692,86 @@ struct LadderCotangent {
   T s0, s1, s2, s3, t0, t1, t2;
 };
 
-// Reverse of one ladder step from its record r (stride MOOG_WARP), with
-// gys its output's cotangent and wfb the share of the feedback's
-// cotangent that reaches s3 (1/2 on Huovilainen's first step, whose
-// feedback is (s3 + prev) / 2, else 1). g goes from the state after the
-// step to the state before it; returns d/du (u = x ig - fb feedback).
+// One step's LADDER_RECORD values from r (stride MOOG_WARP) into registers
+template <typename T>
+__device__ __forceinline__ void ladder_load(T (&v)[LADDER_RECORD],
+                                            const T* r) {
+#pragma unroll
+  for (int i = 0; i < LADDER_RECORD; ++i) v[i] = r[i * MOOG_WARP];
+}
+
+// Reverse of one ladder step from its record r, with gys its output's
+// cotangent and wfb the share of the feedback's cotangent that reaches s3
+// (1/2 on Huovilainen's first step, whose feedback is (s3 + prev) / 2,
+// else 1). g goes from the state after the step to the state before it;
+// returns d/du (u = x ig - fb feedback).
 template <typename T>
 __device__ __forceinline__ T ladder_reverse(const LadderParams<T>& p,
-                                            const T* r, T gys, T wfb,
+                                            const T (&r)[LADDER_RECORD],
+                                            T gys, T wfb,
                                             LadderCotangent<T>& g) {
-  constexpr int W = MOOG_WARP;
   g.s3 = g.s3 + gys;
-  const T gv3 = r[8 * W] * g.s3;
+  const T gv3 = r[8] * g.s3;
   g.t2 = mad(p.coef, gv3, g.t2);
-  g.s2 = mad(r[3 * W], g.t2, g.s2);
-  const T gv2 = r[7 * W] * g.s2;
+  g.s2 = mad(r[3], g.t2, g.s2);
+  const T gv2 = r[7] * g.s2;
   g.t1 = mad(p.coef, gv2, g.t1);
-  g.s1 = mad(r[2 * W], g.t1, g.s1);
-  const T gv1 = r[6 * W] * g.s1;
+  g.s1 = mad(r[2], g.t1, g.s1);
+  const T gv1 = r[6] * g.s1;
   g.t0 = mad(p.coef, gv1, g.t0);
-  g.s0 = mad(r[W], g.t0, g.s0);
-  const T gv0 = r[5 * W] * g.s0;
+  g.s0 = mad(r[1], g.t0, g.s0);
+  const T gv0 = r[5] * g.s0;
   const T gu = r[0] * gv0;
   g.s0 = gv0;
   g.s1 = gv1;
   g.s2 = gv2;
-  g.s3 = mad(wfb, -p.fb * gu, r[4 * W] * gv3);
+  g.s3 = mad(wfb, -p.fb * gu, r[4] * gv3);
   g.t0 = -p.coef * gv0;
   g.t1 = -p.coef * gv1;
   g.t2 = -p.coef * gv2;
   return gu;
+}
+
+template <typename T>
+__device__ __forceinline__ LadderCotangent<T> ladder_cotangent_in(
+    const T* __restrict__ gst, int c, int C) {
+  LadderCotangent<T> g;
+  g.s0 = gst[c];
+  g.s1 = gst[C + c];
+  g.s2 = gst[2 * C + c];
+  g.s3 = gst[3 * C + c] + gst[7 * C + c];
+  g.t0 = gst[4 * C + c];
+  g.t1 = gst[5 * C + c];
+  g.t2 = gst[6 * C + c];
+  return g;
+}
+
+// dst from the cotangent before the first step; gu is that step's d/du.
+// Huovilainen's first step reads tanh(ds * s_i) of the input stages (rows
+// 4-6 are never read) and prev through half its feedback.
+template <typename T, int MODE>
+__device__ __forceinline__ void ladder_adjoint_out(
+    const LadderParams<T>& p, const T* __restrict__ st_in,
+    LadderCotangent<T> g, T gu, T* __restrict__ dst, int c, int C) {
+  T gprev = T(0);
+  if constexpr (MODE == 2) {
+    const T ts[3] = {tanh_ds<T, MODE>(p, st_in[c]),
+                     tanh_ds<T, MODE>(p, st_in[C + c]),
+                     tanh_ds<T, MODE>(p, st_in[2 * C + c])};
+    g.s0 = mad(g.t0, p.ds * (T(1) - ts[0] * ts[0]), g.s0);
+    g.s1 = mad(g.t1, p.ds * (T(1) - ts[1] * ts[1]), g.s1);
+    g.s2 = mad(g.t2, p.ds * (T(1) - ts[2] * ts[2]), g.s2);
+    g.t0 = g.t1 = g.t2 = T(0);
+    gprev = T(0.5) * (-p.fb * gu);
+  }
+  dst[c] = g.s0;
+  dst[C + c] = g.s1;
+  dst[2 * C + c] = g.s2;
+  dst[3 * C + c] = g.s3;
+  dst[4 * C + c] = g.t0;
+  dst[5 * C + c] = g.t1;
+  dst[6 * C + c] = g.t2;
+  dst[7 * C + c] = gprev;
 }
 
 template <typename T, int MODE>
@@ -723,15 +825,7 @@ moog_ladder_adjoint_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
   // walk 2: each segment again from its checkpoint, recorded, then swept
   // backward
   LadderCotangent<T> g{};
-  if (live) {
-    g.s0 = gst[c];
-    g.s1 = gst[C + c];
-    g.s2 = gst[2 * C + c];
-    g.s3 = gst[3 * C + c] + gst[7 * C + c];
-    g.t0 = gst[4 * C + c];
-    g.t1 = gst[5 * C + c];
-    g.t2 = gst[6 * C + c];
-  }
+  if (live) g = ladder_cotangent_in(gst, c, C);
   T gu = T(0);
   for (long long j = nseg - 1; j >= 0; --j) {
     const long long k0 = j * seg;
@@ -755,7 +849,9 @@ moog_ladder_adjoint_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
     int tick = static_cast<int>(k0 + len - 1 - n * os);
     for (int s = len - 1; s >= 0; --s) {
       const T wfb = MODE == 2 && k0 + s == 0 ? T(0.5) : T(1);
-      gu = ladder_reverse(p, rec + s * LADDER_RECORD * W, gys[s * W], wfb, g);
+      T r[LADDER_RECORD];
+      ladder_load(r, rec + s * LADDER_RECORD * W);
+      gu = ladder_reverse(p, r, gys[s * W], wfb, g);
       if (live && tick == 0) dx[row + n] = p.osf * (p.ig * gu);
       if (--tick < 0) {
         tick = os - 1;
@@ -763,46 +859,25 @@ moog_ladder_adjoint_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
       }
     }
   }
-  if (!live) return;
-  T gprev = T(0);
-  if constexpr (MODE == 2) {
-    // the first step's tanh(ds * s_i) of the input stages, and the half of
-    // its feedback that reads prev; rows 4-6 are never read
-    const T ts[3] = {tanh_ds<T, MODE>(p, st_in[c]),
-                     tanh_ds<T, MODE>(p, st_in[C + c]),
-                     tanh_ds<T, MODE>(p, st_in[2 * C + c])};
-    g.s0 = mad(g.t0, p.ds * (T(1) - ts[0] * ts[0]), g.s0);
-    g.s1 = mad(g.t1, p.ds * (T(1) - ts[1] * ts[1]), g.s1);
-    g.s2 = mad(g.t2, p.ds * (T(1) - ts[2] * ts[2]), g.s2);
-    g.t0 = g.t1 = g.t2 = T(0);
-    gprev = T(0.5) * (-p.fb * gu);
-  }
-  dst[c] = g.s0;
-  dst[C + c] = g.s1;
-  dst[2 * C + c] = g.s2;
-  dst[3 * C + c] = g.s3;
-  dst[4 * C + c] = g.t0;
-  dst[5 * C + c] = g.t1;
-  dst[6 * C + c] = g.t2;
-  dst[7 * C + c] = gprev;
+  if (live) ladder_adjoint_out<T, MODE>(p, st_in, g, gu, dst, c, C);
 }
 
-// Reverse of one ZDF ladder pass at its four tanh ty (stride MOOG_WARP),
-// given the cotangents gv of v0..v3 and gty added to the tanh (from the
-// Jacobian); adds to gs, gts (the old stages' tanh) and ginp. Returns
-// d/d y3est. ty_{i+1} = tanh(shape (vs (ty_i - ts_i) + s_i)),
+// Reverse of one ZDF ladder pass at its four tanh ty, given the
+// cotangents gv of v0..v3 and gty added to the tanh (from the Jacobian);
+// adds to gs, gts (the old stages' tanh) and ginp. Returns d/d y3est.
+// ty_{i+1} = tanh(shape (vs (ty_i - ts_i) + s_i)),
 // ty_0 = tanh(shape (inp - k y3est)).
 template <typename T>
 __device__ __forceinline__ T zdf_pass_reverse(const ZdfParams<T>& p,
-                                              const T* ty, const T (&gv)[4],
+                                              const T (&ty)[4],
+                                              const T (&gv)[4],
                                               const T (&gty)[4], T (&gs)[4],
                                               T (&gts)[4], T& ginp) {
-  constexpr int W = MOOG_WARP;
   T gt = mad(p.vs, gv[3], gty[3]);
   gts[3] = mad(-p.vs, gv[3], gts[3]);
 #pragma unroll
   for (int i = 3; i >= 1; --i) {
-    const T t = ty[i * W];
+    const T t = ty[i];
     const T gyy = gt * (p.shape * (T(1) - t * t));
     gs[i - 1] = gs[i - 1] + gyy;
     const T gvv = gv[i - 1] + gyy;
@@ -815,63 +890,131 @@ __device__ __forceinline__ T zdf_pass_reverse(const ZdfParams<T>& p,
   return -p.k * gz;
 }
 
-// Reverse of one ZDF step from its record r (stride MOOG_WARP), with gys
-// its output's cotangent: gS (the stages) and gP (prev, the step's y3) go
-// from the state after the step to the state before it. The Newton
-// updates y3est' = y3est - q, q = (y3 - y3est) / J, J = -k prod_i D_i - 1,
-// D_i = gk (1 - ty_i^2), are reversed in turn; one that kept its estimate
-// (|J| < 1e-15) passes the cotangent through. Returns d/d inp.
+// What a ZDF step's reverse reads first, loaded ahead into registers: the
+// four clip masks, the last pass's tanh and the last Newton update's
+// ZDF_UPDATE values (four tanh, J, step)
 template <typename T>
-__device__ __forceinline__ T zdf_reverse(const ZdfParams<T>& p, const T* r,
+struct ZdfHead {
+  T m[4], ty[4], it[ZDF_UPDATE];
+};
+
+template <typename T>
+__device__ __forceinline__ void zdf_head(ZdfHead<T>& h, const T* r,
+                                         int newton_iters) {
+  constexpr int W = MOOG_WARP;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h.m[i] = r[(4 + i) * W];
+    h.ty[i] = r[(8 + ZDF_UPDATE * newton_iters + i) * W];
+  }
+#pragma unroll
+  for (int v = 0; v < ZDF_UPDATE; ++v)
+    h.it[v] = r[(8 + ZDF_UPDATE * (newton_iters - 1) + v) * W];
+}
+
+// 1 / v correctly rounded (IEEE)
+__device__ __forceinline__ float reciprocal(float v) { return __frcp_rn(v); }
+__device__ __forceinline__ double reciprocal(double v) { return __drcp_rn(v); }
+
+// a / b from b's correctly rounded reciprocal rb: q = a rb and one
+// correction by the residual a - b q (exact as an FMA). That is the
+// correctly rounded quotient, IEEE division's, wherever neither the
+// quotient nor the residual over- or underflows (Markstein): on a
+// dependent chain, a multiply and two FMAs instead of a division, whose
+// own reciprocal and special-case branch wait on a.
+template <typename T>
+__device__ __forceinline__ T divide_by(T a, T b, T rb) {
+  const T q = a * rb;
+  return mad(mad(-b, q, a), rb, q);
+}
+
+// Reverse of one ZDF step from its record r (stride MOOG_WARP) and its
+// head h, with gys its output's cotangent: gS (the stages) and gP (prev,
+// the step's y3) go from the state after the step to the state before it.
+// The Newton updates y3est' = y3est - q, q = (y3 - y3est) / J,
+// J = -k prod_i D_i - 1, D_i = gk (1 - ty_i^2), are reversed in turn, each
+// update's values loaded while the one after it is reversed; one that
+// kept its estimate (|J| < 1e-15) passes the cotangent through. Its two
+// quotients by J are IEEE divisions, or with RCP divide_by with 1 / J
+// formed from the J loaded ahead, off the chain. Returns d/d inp.
+template <typename T, bool RCP>
+__device__ __forceinline__ T zdf_reverse(const ZdfParams<T>& p,
+                                         const ZdfHead<T>& h, const T* r,
                                          T gys, int newton_iters, T (&gS)[4],
                                          T& gP) {
   constexpr int W = MOOG_WARP;
+  T ts[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ts[i] = r[i * W];
   const T gy3 = gP + gys;
   T gs[4], gv[4], gts[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    gs[i] = r[(4 + i) * W] * gS[i];
+    gs[i] = h.m[i] * gS[i];
     gv[i] = T(2) * gs[i];
   }
   gv[3] = gv[3] + gy3;
   gs[3] = gs[3] + gy3;
   T ginp = T(0);
   const T none[4] = {T(0), T(0), T(0), T(0)};
-  T ge = zdf_pass_reverse(p, r + (8 + 6 * newton_iters) * W, gv, none, gs,
-                          gts, ginp);
+  T ge = zdf_pass_reverse(p, h.ty, gv, none, gs, gts, ginp);
+  T cur[ZDF_UPDATE];
+#pragma unroll
+  for (int v = 0; v < ZDF_UPDATE; ++v) cur[v] = h.it[v];
   for (int it = newton_iters - 1; it >= 0; --it) {
-    const T* rp = r + (8 + 6 * it) * W;
-    const T jac = rp[4 * W];
-    if ((jac < T(0) ? -jac : jac) < T(1e-15)) continue;
-    const T q = rp[5 * W];
-    const T gq = -ge;
-    const T gr = gq / jac;
-    const T gj = -gq * q / jac;
-    ge = ge - gr;
-    const T gdprod = -p.k * gj;
-    T t[4], d[4];
+    // the update before this one (this one's again at it = 0)
+    T nxt[ZDF_UPDATE];
+    const T* rn = r + (8 + ZDF_UPDATE * (it > 0 ? it - 1 : 0)) * W;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      t[i] = rp[i * W];
-      d[i] = p.gk * (T(1) - t[i] * t[i]);
+    for (int v = 0; v < ZDF_UPDATE; ++v) nxt[v] = rn[v * W];
+    const T jac = cur[4];
+    const T rjac = RCP ? reciprocal(jac) : T(0);
+    if (!((jac < T(0) ? -jac : jac) < T(1e-15))) {
+      const T q = cur[5];
+      const T gq = -ge;
+      const T gr = RCP ? divide_by(gq, jac, rjac) : gq / jac;
+      const T gj = RCP ? divide_by(-gq * q, jac, rjac) : -gq * q / jac;
+      ge = ge - gr;
+      const T gdprod = -p.k * gj;
+      T t[4], d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        t[i] = cur[i];
+        d[i] = p.gk * (T(1) - t[i] * t[i]);
+      }
+      const T others[4] = {d[1] * d[2] * d[3], d[0] * d[2] * d[3],
+                           d[0] * d[1] * d[3], d[0] * d[1] * d[2]};
+      T gty[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        gty[i] = gdprod * others[i] * (T(-2) * p.gk * t[i]);
+      const T gvn[4] = {T(0), T(0), T(0), gr};
+      gs[3] = gs[3] + gr;
+      ge = ge + zdf_pass_reverse(p, t, gvn, gty, gs, gts, ginp);
     }
-    const T others[4] = {d[1] * d[2] * d[3], d[0] * d[2] * d[3],
-                         d[0] * d[1] * d[3], d[0] * d[1] * d[2]};
-    T gty[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      gty[i] = gdprod * others[i] * (T(-2) * p.gk * t[i]);
-    const T gvn[4] = {T(0), T(0), T(0), gr};
-    gs[3] = gs[3] + gr;
-    ge = ge + zdf_pass_reverse(p, rp, gvn, gty, gs, gts, ginp);
+    for (int v = 0; v < ZDF_UPDATE; ++v) cur[v] = nxt[v];
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const T t = r[i * W];
-    gS[i] = mad(gts[i], p.shape * (T(1) - t * t), gs[i]);
-  }
+  for (int i = 0; i < 4; ++i)
+    gS[i] = mad(gts[i], p.shape * (T(1) - ts[i] * ts[i]), gs[i]);
   gP = ge;
   return ginp;
+}
+
+// dst of the ZDF ladder: the stages' and prev's cotangents; rows 4-6 pass
+// through
+template <typename T>
+__device__ __forceinline__ void zdf_adjoint_out(const T (&gS)[4], T gP,
+                                                const T* __restrict__ gst,
+                                                T* __restrict__ dst, int c,
+                                                int C) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dst[i * C + c] = gS[i];
+  dst[4 * C + c] = gst[4 * C + c];
+  dst[5 * C + c] = gst[5 * C + c];
+  dst[6 * C + c] = gst[6 * C + c];
+  dst[7 * C + c] = gP;
 }
 
 template <typename T>
@@ -951,8 +1094,10 @@ moog_zdf_adjoint_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
     long long n = (k0 + len - 1) / os;
     int tick = static_cast<int>(k0 + len - 1 - n * os);
     for (int k = len - 1; k >= 0; --k) {
-      const T ginp = zdf_reverse(p, rec + k * nv * W, gys[k * W],
-                                 newton_iters, gS, gP);
+      ZdfHead<T> h;
+      zdf_head(h, rec + k * nv * W, newton_iters);
+      const T ginp = zdf_reverse<T, false>(p, h, rec + k * nv * W,
+                                           gys[k * W], newton_iters, gS, gP);
       if (live && tick == 0) dx[row + n] = p.osf * (p.ig * ginp);
       if (--tick < 0) {
         tick = os - 1;
@@ -960,14 +1105,317 @@ moog_zdf_adjoint_kernel(const T* __restrict__ x, const T* __restrict__ st_in,
       }
     }
   }
-  if (!live) return;
+  if (live) zdf_adjoint_out(gS, gP, gst, dst, c, C);
+}
+
+// ---------------------------------------------------------------------------
+// The reverse kernels of the record route: moog_ladder_reverse_kernel and
+// moog_zdf_reverse_kernel sweep the record rec (ceil(C / 32), T * os, nv,
+// 32) of a recording K5 / K6 backward, for the cotangents gy (C, T) and
+// gst (8, C), with the reverse step code of the checkpoint route, so dx
+// and dst are its bits.
+//
+// A block is two warps over 32 channels. The staging warp streams the
+// block's record backward in time, RevPlan::rt steps a stage, into a ring
+// of REV_STAGES shared-memory stages: one thread asks for each stage's
+// record as one TMA bulk copy (cp.async.bulk), and the warp stages beside
+// it the gy of the samples whose last tick lies in the stage, coalesced,
+// at the base rate, by cp.async; both complete on the stage's `full`
+// mbarrier, so the staging warp waits on nothing but a free stage. The
+// walking warp (one lane a channel) waits on `full`, runs the stage's
+// steps backward with each step's record values loaded into registers
+// while the step before runs, adds gy on a sample's last tick only, writes
+// dx into the stage on its first tick, and arrives on `empty`; the staging
+// warp then flushes that dx, coalesced, before it refills the stage. So
+// the walking warp runs only the sweep and a few shared-memory loads a
+// step, and three stages of record are in flight while it works on the
+// fourth (the ladder reads ~1.1 KB a step a block, every ~63 cycles).
+
+constexpr int REV_STAGES = 4;
+constexpr size_t REV_STAGE_BYTES = 24 * 1024;   // record bytes a stage, about
+constexpr size_t REV_BARRIER_BYTES = 128;       // the mbarriers, before the ring
+
+struct RevPlan {
+  int nv;       // record values a step
+  int rt;       // steps a stage
+  int g;        // samples a stage (gy in, dx out): ceil(rt / os) at most
+  int stage;    // elements of a stage: record, gy, dx; 16-byte multiple
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of bar has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One element from global src to shared dst by cp.async, not waited for
+template <typename T>
+__device__ __forceinline__ void async_load(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// Arrive on bar once this thread's cp.async copies so far have landed
+// (one of the arrivals bar was initialised to expect)
+__device__ __forceinline__ void mbar_arrive_async(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global
+// src to shared dst, completed on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The ring for a block: the stager's loop, and the walker's, which calls
+// walk(rec, gy, dx, start, end) on each stage from the last in time to the
+// first: its lane's record at rec[(k * nv + v) * MOOG_WARP] for step
+// start + k, gy of sample n at gy[(n - start / os) * (MOOG_WARP + 1)] and
+// dx of sample n at dx[(n - ceil(start / os)) * (MOOG_WARP + 1)].
+template <typename T, typename Walk>
+__device__ __forceinline__ void reverse_ring(const T* __restrict__ rec,
+                                             const T* __restrict__ gy,
+                                             T* __restrict__ dx, int C,
+                                             long long Tn, int os,
+                                             const RevPlan& pl, Walk walk) {
+  constexpr int W = MOOG_WARP;
+  extern __shared__ __align__(128) unsigned char rev_smem[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(rev_smem);
+  unsigned long long* empty = full + REV_STAGES;
+  T* ring = reinterpret_cast<T*>(rev_smem + REV_BARRIER_BYTES);
+  const int lane = threadIdx.x % W;
+  const int c0 = blockIdx.x * W;
+  const int rows = min(W, C - c0);
+  const long long steps = Tn * os;
+  const long long ntiles = (steps + pl.rt - 1) / pl.rt;
+  const size_t step_elems = static_cast<size_t>(pl.nv) * W;
+  const size_t gy_at = pl.rt * step_elems;
+  const size_t dx_at = gy_at + static_cast<size_t>(pl.g) * (W + 1);
+  const T* rec_b = rec + static_cast<size_t>(blockIdx.x) * steps * step_elems;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < REV_STAGES; ++i) {
+      mbar_init(&full[i], W + 1);   // the copy's thread twice, the others once
+      mbar_init(&empty[i], W);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // stage t of the sweep holds steps [start, end), tile ntiles - 1 - t
+  auto span = [&](long long t, long long& start, long long& end) {
+    start = (ntiles - 1 - t) * pl.rt;
+    end = min(start + pl.rt, steps);
+  };
+  auto slot = [&](long long t) {
+    return ring + static_cast<size_t>(t % REV_STAGES) * pl.stage;
+  };
+  if (threadIdx.x >= W) {
+    // the (row, sample) pairs of a stage over the lanes, a row's samples
+    // on consecutive lanes (a stage holds few samples a row); unrolled, so
+    // that the pairs' index arithmetic and loads overlap (at os 1 these
+    // loops, not the walk, set the pace)
+    auto flush = [&](long long t) {
+      long long start, end;
+      span(t, start, end);
+      const long long n0 = (start + os - 1) / os;
+      const int m = static_cast<int>((end + os - 1) / os - n0);
+      const T* src = slot(t) + dx_at;
+#pragma unroll 4
+      for (int i = lane; i < rows * m; i += W) {
+        const int r = i / m, j = i - r * m;
+        dx[static_cast<size_t>(c0 + r) * Tn + n0 + j] = src[j * (W + 1) + r];
+      }
+    };
+    for (long long t = 0; t < ntiles; ++t) {
+      const int s = static_cast<int>(t % REV_STAGES);
+      const unsigned use = static_cast<unsigned>(t / REV_STAGES);
+      if (use > 0) {
+        mbar_wait(&empty[s], (use - 1) & 1);
+        flush(t - REV_STAGES);
+      }
+      long long start, end;
+      span(t, start, end);
+      T* dst = slot(t);
+      if (lane == 0) {
+        const unsigned bytes =
+            static_cast<unsigned>((end - start) * step_elems * sizeof(T));
+        mbar_arrive_tx(&full[s], bytes);
+        bulk_load(dst, rec_b + start * step_elems, bytes, &full[s]);
+      }
+      const long long n0 = start / os;
+      const int m = static_cast<int>(end / os - n0);
+#pragma unroll 4
+      for (int i = lane; i < rows * m; i += W) {
+        const int r = i / m, j = i - r * m;
+        async_load(&dst[gy_at + j * (W + 1) + r],
+                   gy + static_cast<size_t>(c0 + r) * Tn + n0 + j);
+      }
+      mbar_arrive_async(&full[s]);
+    }
+    for (long long t = max(0LL, ntiles - REV_STAGES); t < ntiles; ++t) {
+      mbar_wait(&empty[t % REV_STAGES],
+                static_cast<unsigned>(t / REV_STAGES) & 1);
+      flush(t);
+    }
+  } else {
+    for (long long t = 0; t < ntiles; ++t) {
+      mbar_wait(&full[t % REV_STAGES],
+                static_cast<unsigned>(t / REV_STAGES) & 1);
+      long long start, end;
+      span(t, start, end);
+      T* at = slot(t) + lane;
+      walk(static_cast<const T*>(at), static_cast<const T*>(at + gy_at),
+           at + dx_at, start, end);
+      mbar_arrive(&empty[t % REV_STAGES]);
+    }
+  }
+}
+
+// The walker's side of one stage: steps [start, end) backward, the
+// record of each step loaded (load(regs, j) for the stage's step j) and
+// its output cotangent (osc gy on a sample's last tick, as the checkpoint
+// route's staging scales it, else 0) read while the step after it is
+// reversed by rev(regs, j, gys), which returns d/d inp; dx = dx_scale
+// d/d inp is written on a sample's first tick. Indices within the stage
+// are 32-bit.
+template <int OS, typename T, typename Regs, typename Load, typename Rev>
+__device__ __forceinline__ void reverse_stage(const T* gy, T* dx,
+                                              long long start, long long end,
+                                              int os, T osc, T dx_scale,
+                                              Load load, Rev rev) {
+  constexpr int W = MOOG_WARP;
+  const int os_ = OS > 0 ? OS : os;
+  const long long n_last = (end - 1) / os_;
+  int tick = static_cast<int>(end - 1 - n_last * os_);
+  // the current sample's place among the stage's gy and dx samples
+  int gi = static_cast<int>(n_last - start / os_) * (W + 1);
+  int di = static_cast<int>(n_last - (start + os_ - 1) / os_) * (W + 1);
+  Regs cur;
+  load(cur, static_cast<int>(end - 1 - start));
+  T gcur = tick == os_ - 1 ? gy[gi] * osc : T(0);
+  for (int j = static_cast<int>(end - 1 - start); j >= 0; --j) {
+    const bool first = tick == 0;
+    const int tick_n = first ? os_ - 1 : tick - 1;
+    const int gi_n = first ? gi - (W + 1) : gi;
+    // the next step's values, loaded unconditionally (a branch around the
+    // loads costs more than they do): at j = 0 step 0's again, and a gy
+    // slot that may lie one sample before the stage's, in its record
+    Regs nxt;
+    load(nxt, j > 0 ? j - 1 : 0);
+    const T gl = gy[gi_n] * osc;
+    const T gnxt = tick_n == os_ - 1 ? gl : T(0);
+    const T d = rev(cur, j, gcur);
+    if (first) {
+      dx[di] = dx_scale * d;
+      di -= W + 1;
+    }
+    tick = tick_n;
+    gi = gi_n;
+    cur = nxt;
+    gcur = gnxt;
+  }
+}
+
+template <typename T>
+struct LadderRegs {
+  T v[LADDER_RECORD];
+};
+
+template <typename T, int MODE, int OS>
+__global__ void __launch_bounds__(2 * MOOG_WARP)
+moog_ladder_reverse_kernel(const T* __restrict__ rec,
+                           const T* __restrict__ st_in,
+                           const T* __restrict__ gy, const T* __restrict__ gst,
+                           T* __restrict__ dx, T* __restrict__ dst,
+                           LadderParams<T> p, RevPlan pl, int C, long long Tn,
+                           int os) {
+  constexpr int W = MOOG_WARP;
+  const int c = blockIdx.x * W + threadIdx.x;
+  const bool live = threadIdx.x < W && c < C;
+  LadderCotangent<T> g{};
+  if (live) g = ladder_cotangent_in(gst, c, C);
+  T gu = T(0);
+  reverse_ring(rec, gy, dx, C, Tn, os, pl,
+               [&](const T* r, const T* gys, T* dxs, long long start,
+                   long long end) {
+    reverse_stage<OS, T, LadderRegs<T>>(
+        gys, dxs, start, end, os, p.osc, p.osf,
+        [&](LadderRegs<T>& v, int j) {
+          ladder_load(v.v, r + j * LADDER_RECORD * W);
+        },
+        [&](const LadderRegs<T>& v, int j, T gyv) {
+          const T wfb = MODE == 2 && start == 0 && j == 0 ? T(0.5) : T(1);
+          gu = ladder_reverse(p, v.v, gyv, wfb, g);
+          return p.ig * gu;
+        });
+  });
+  if (live) ladder_adjoint_out<T, MODE>(p, st_in, g, gu, dst, c, C);
+}
+
+template <typename T, int OS>
+__global__ void __launch_bounds__(2 * MOOG_WARP)
+moog_zdf_reverse_kernel(const T* __restrict__ rec, const T* __restrict__ gy,
+                        const T* __restrict__ gst, T* __restrict__ dx,
+                        T* __restrict__ dst, ZdfParams<T> p, RevPlan pl,
+                        int newton_iters, int C, long long Tn, int os) {
+  constexpr int W = MOOG_WARP;
+  const int c = blockIdx.x * W + threadIdx.x;
+  const bool live = threadIdx.x < W && c < C;
+  T gS[4] = {T(0), T(0), T(0), T(0)};
+  T gP = T(0);
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dst[i * C + c] = gS[i];
-  // rows 4-6 pass through the ZDF ladder
-  dst[4 * C + c] = gst[4 * C + c];
-  dst[5 * C + c] = gst[5 * C + c];
-  dst[6 * C + c] = gst[6 * C + c];
-  dst[7 * C + c] = gP;
+    for (int i = 0; i < 4; ++i) gS[i] = gst[i * C + c];
+    gP = gst[7 * C + c];
+  }
+  const int nv = pl.nv;
+  reverse_ring(rec, gy, dx, C, Tn, os, pl,
+               [&](const T* r, const T* gys, T* dxs, long long start,
+                   long long end) {
+    reverse_stage<OS, T, ZdfHead<T>>(
+        gys, dxs, start, end, os, p.osc, p.osf,
+        [&](ZdfHead<T>& h, int j) {
+          zdf_head(h, r + j * nv * W, newton_iters);
+        },
+        [&](const ZdfHead<T>& h, int j, T gyv) {
+          return p.ig * zdf_reverse<T, true>(p, h, r + j * nv * W, gyv,
+                                             newton_iters, gS, gP);
+        });
+  });
+  if (live) zdf_adjoint_out(gS, gP, gst, dst, c, C);
 }
 
 // The kernel instance for os: float32 takes the chain's factors 1, 2, 4
@@ -986,19 +1434,35 @@ auto pick_os(int os) {
   return Pick<0>::get();
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool RECORD>
 struct LadderPick {
   template <int OS>
   struct At {
-    static auto get() { return &moog_ladder_kernel<T, MODE, OS>; }
+    static auto get() { return &moog_ladder_kernel<T, MODE, OS, RECORD>; }
+  };
+};
+
+template <typename T, bool RECORD>
+struct ZdfPick {
+  template <int OS>
+  struct At {
+    static auto get() { return &moog_zdf_kernel<T, OS, RECORD>; }
+  };
+};
+
+template <typename T, int MODE>
+struct LadderReversePick {
+  template <int OS>
+  struct At {
+    static auto get() { return &moog_ladder_reverse_kernel<T, MODE, OS>; }
   };
 };
 
 template <typename T>
-struct ZdfPick {
+struct ZdfReversePick {
   template <int OS>
   struct At {
-    static auto get() { return &moog_zdf_kernel<T, OS>; }
+    static auto get() { return &moog_zdf_reverse_kernel<T, OS>; }
   };
 };
 
@@ -1028,34 +1492,120 @@ ZdfParams<T> zdf_params(double p0, double p1, double p2, double p3,
   return p;
 }
 
+template <typename T, bool RECORD>
+auto ladder_kernel(int mode, int os) {
+  return mode == 0   ? pick_os<T, LadderPick<T, 0, RECORD>::template At>(os)
+         : mode == 1 ? pick_os<T, LadderPick<T, 1, RECORD>::template At>(os)
+                     : pick_os<T, LadderPick<T, 2, RECORD>::template At>(os);
+}
+
 template <typename T>
-int launch_ladder(const T* x, const T* st_in, T* st_out, T* y, double p0,
-                  double p1, double p2, double p3, double p4, int C,
-                  long long Tn, int mode, int os, void* stream) {
+int launch_ladder(const T* x, const T* st_in, T* st_out, T* y, T* rec,
+                  double p0, double p1, double p2, double p3, double p4,
+                  int C, long long Tn, int mode, int os, void* stream) {
   if (C < 1 || Tn < 1 || mode < 0 || mode > 2 || os < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const LadderParams<T> p = ladder_params<T>(p0, p1, p2, p3, p4, os);
   const dim3 grid((C + MOOG_WARP - 1) / MOOG_WARP);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = mode == 0   ? pick_os<T, LadderPick<T, 0>::template At>(os)
-                : mode == 1 ? pick_os<T, LadderPick<T, 1>::template At>(os)
-                            : pick_os<T, LadderPick<T, 2>::template At>(os);
-  kernel<<<grid, 2 * MOOG_WARP, 0, s>>>(x, st_in, st_out, y, p, C, Tn, os);
+  auto kernel = rec == nullptr ? ladder_kernel<T, false>(mode, os)
+                               : ladder_kernel<T, true>(mode, os);
+  kernel<<<grid, 2 * MOOG_WARP, 0, s>>>(x, st_in, st_out, y, rec, p, C, Tn,
+                                        os);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_zdf(const T* x, const T* st_in, T* st_out, T* y, double p0,
-               double p1, double p2, double p3, double p4, int C, long long Tn,
-               int newton_iters, int os, void* stream) {
+int launch_zdf(const T* x, const T* st_in, T* st_out, T* y, T* rec,
+               double p0, double p1, double p2, double p3, double p4, int C,
+               long long Tn, int newton_iters, int os, void* stream) {
   if (C < 1 || Tn < 1 || newton_iters < 1 || newton_iters > 8 || os < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const ZdfParams<T> p = zdf_params<T>(p0, p1, p2, p3, p4, os);
   const dim3 grid((C + MOOG_WARP - 1) / MOOG_WARP);
-  auto kernel = pick_os<T, ZdfPick<T>::template At>(os);
+  auto kernel = rec == nullptr ? pick_os<T, ZdfPick<T, false>::template At>(os)
+                               : pick_os<T, ZdfPick<T, true>::template At>(os);
   kernel<<<grid, 2 * MOOG_WARP, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, st_in, st_out, y, p, newton_iters, C, Tn, os);
+      x, st_in, st_out, y, rec, p, newton_iters, C, Tn, os);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The reverse kernels' stages: about REV_STAGE_BYTES of record, and the gy
+// and dx of the samples those steps touch
+template <typename T>
+RevPlan rev_plan(int nv, int os) {
+  RevPlan pl;
+  pl.nv = nv;
+  const size_t step_bytes = static_cast<size_t>(nv) * MOOG_WARP * sizeof(T);
+  pl.rt = static_cast<int>(std::max<size_t>(1, REV_STAGE_BYTES / step_bytes));
+  pl.g = (pl.rt + os - 1) / os;
+  const size_t bytes = step_bytes * pl.rt +
+                       2 * static_cast<size_t>(pl.g) * (MOOG_WARP + 1) * sizeof(T);
+  pl.stage = static_cast<int>((bytes + 15) / 16 * 16 / sizeof(T));
+  return pl;
+}
+
+template <typename T>
+size_t rev_smem(const RevPlan& pl) {
+  return REV_BARRIER_BYTES + REV_STAGES * static_cast<size_t>(pl.stage) * sizeof(T);
+}
+
+// Launch a reverse kernel with `smem` bytes of dynamic shared memory,
+// raising its limit past 48 KB the first time each kernel asks
+template <typename K, typename... Args>
+int launch_reverse(K kernel, dim3 grid, size_t smem, cudaStream_t s,
+                   Args... args) {
+  static const void* raised[64];
+  static size_t raised_to[64];
+  static int n_raised = 0;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int i = 0;
+  while (i < n_raised && raised[i] != key) ++i;
+  if (i == n_raised || raised_to[i] < smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (i == n_raised && n_raised < 64) raised[n_raised++] = key;
+    if (i < n_raised) raised_to[i] = smem;
+  }
+  kernel<<<grid, 2 * MOOG_WARP, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_ladder_reverse(const T* rec, const T* st_in, const T* gy,
+                          const T* gst, T* dx, T* dst, double p0, double p1,
+                          double p2, double p3, double p4, int C,
+                          long long Tn, int mode, int os, void* stream) {
+  if (C < 1 || Tn < 1 || mode < 0 || mode > 2 || os < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LadderParams<T> p = ladder_params<T>(p0, p1, p2, p3, p4, os);
+  const RevPlan pl = rev_plan<T>(LADDER_RECORD, os);
+  const dim3 grid((C + MOOG_WARP - 1) / MOOG_WARP);
+  auto kernel =
+      mode == 0   ? pick_os<T, LadderReversePick<T, 0>::template At>(os)
+      : mode == 1 ? pick_os<T, LadderReversePick<T, 1>::template At>(os)
+                  : pick_os<T, LadderReversePick<T, 2>::template At>(os);
+  return launch_reverse(kernel, grid, rev_smem<T>(pl),
+                        static_cast<cudaStream_t>(stream), rec, st_in, gy,
+                        gst, dx, dst, p, pl, C, Tn, os);
+}
+
+template <typename T>
+int launch_zdf_reverse(const T* rec, const T* gy, const T* gst, T* dx, T* dst,
+                       double p0, double p1, double p2, double p3, double p4,
+                       int C, long long Tn, int newton_iters, int os,
+                       void* stream) {
+  if (C < 1 || Tn < 1 || newton_iters < 1 || newton_iters > 8 || os < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ZdfParams<T> p = zdf_params<T>(p0, p1, p2, p3, p4, os);
+  const RevPlan pl = rev_plan<T>(zdf_record(newton_iters), os);
+  const dim3 grid((C + MOOG_WARP - 1) / MOOG_WARP);
+  auto kernel = pick_os<T, ZdfReversePick<T>::template At>(os);
+  return launch_reverse(kernel, grid, rev_smem<T>(pl),
+                        static_cast<cudaStream_t>(stream), rec, gy, gst, dx,
+                        dst, p, pl, newton_iters, C, Tn, os);
 }
 
 // The adjoints' shared memory: seg steps of x, cotangent and record, at
@@ -1116,36 +1666,81 @@ const char* algodsp_error_string(int code) {
 
 // x, y: (C, T) at the base rate; st_in, st_out: (8, C). mode 0 classic
 // (tanh), 1 classic (rational tanh), 2 Huovilainen; os >= 1 ladder steps
-// per sample. Return cudaGetLastError() after the launch.
+// per sample. rec null runs K5 / K6; otherwise the recording instance
+// stores each step's record in rec (ceil(C / 32), T * os, nv, 32), nv =
+// LADDER_RECORD or zdf_record(newton_iters). Return cudaGetLastError()
+// after the launch.
 int moog_ladder_f32(const float* x, const float* st_in, float* st_out,
-                    float* y, double p0, double p1, double p2, double p3,
-                    double p4, int C, long long T, int mode, int os,
+                    float* y, float* rec, double p0, double p1, double p2,
+                    double p3, double p4, int C, long long T, int mode, int os,
                     void* stream) {
-  return launch_ladder<float>(x, st_in, st_out, y, p0, p1, p2, p3, p4, C, T,
-                              mode, os, stream);
+  return launch_ladder<float>(x, st_in, st_out, y, rec, p0, p1, p2, p3, p4, C,
+                              T, mode, os, stream);
 }
 
 int moog_ladder_f64(const double* x, const double* st_in, double* st_out,
-                    double* y, double p0, double p1, double p2, double p3,
-                    double p4, int C, long long T, int mode, int os,
+                    double* y, double* rec, double p0, double p1, double p2,
+                    double p3, double p4, int C, long long T, int mode, int os,
                     void* stream) {
-  return launch_ladder<double>(x, st_in, st_out, y, p0, p1, p2, p3, p4, C, T,
-                               mode, os, stream);
+  return launch_ladder<double>(x, st_in, st_out, y, rec, p0, p1, p2, p3, p4,
+                               C, T, mode, os, stream);
 }
 
 int moog_zdf_f32(const float* x, const float* st_in, float* st_out, float* y,
-                 double p0, double p1, double p2, double p3, double p4, int C,
-                 long long T, int newton_iters, int os, void* stream) {
-  return launch_zdf<float>(x, st_in, st_out, y, p0, p1, p2, p3, p4, C, T,
+                 float* rec, double p0, double p1, double p2, double p3,
+                 double p4, int C, long long T, int newton_iters, int os,
+                 void* stream) {
+  return launch_zdf<float>(x, st_in, st_out, y, rec, p0, p1, p2, p3, p4, C, T,
                            newton_iters, os, stream);
 }
 
 int moog_zdf_f64(const double* x, const double* st_in, double* st_out,
-                 double* y, double p0, double p1, double p2, double p3,
-                 double p4, int C, long long T, int newton_iters, int os,
-                 void* stream) {
-  return launch_zdf<double>(x, st_in, st_out, y, p0, p1, p2, p3, p4, C, T,
+                 double* y, double* rec, double p0, double p1, double p2,
+                 double p3, double p4, int C, long long T, int newton_iters,
+                 int os, void* stream) {
+  return launch_zdf<double>(x, st_in, st_out, y, rec, p0, p1, p2, p3, p4, C, T,
                             newton_iters, os, stream);
+}
+
+// The reverse kernels: rec as the recording instances write it; gy, dx
+// (C, T); st_in, gst, dst (8, C). Return cudaGetLastError() after the
+// launch (or the error of raising the kernel's shared-memory limit).
+int moog_ladder_reverse_f32(const float* rec, const float* st_in,
+                            const float* gy, const float* gst, float* dx,
+                            float* dst, double p0, double p1, double p2,
+                            double p3, double p4, int C, long long T, int mode,
+                            int os, void* stream) {
+  return launch_ladder_reverse<float>(rec, st_in, gy, gst, dx, dst, p0, p1,
+                                      p2, p3, p4, C, T, mode, os, stream);
+}
+
+int moog_ladder_reverse_f64(const double* rec, const double* st_in,
+                            const double* gy, const double* gst, double* dx,
+                            double* dst, double p0, double p1, double p2,
+                            double p3, double p4, int C, long long T, int mode,
+                            int os, void* stream) {
+  return launch_ladder_reverse<double>(rec, st_in, gy, gst, dx, dst, p0, p1,
+                                       p2, p3, p4, C, T, mode, os, stream);
+}
+
+int moog_zdf_reverse_f32(const float* rec, const float* st_in,
+                         const float* gy, const float* gst, float* dx,
+                         float* dst, double p0, double p1, double p2,
+                         double p3, double p4, int C, long long T,
+                         int newton_iters, int os, void* stream) {
+  (void)st_in;   // ZDF's reverse reads none of the state in
+  return launch_zdf_reverse<float>(rec, gy, gst, dx, dst, p0, p1, p2, p3, p4,
+                                   C, T, newton_iters, os, stream);
+}
+
+int moog_zdf_reverse_f64(const double* rec, const double* st_in,
+                         const double* gy, const double* gst, double* dx,
+                         double* dst, double p0, double p1, double p2,
+                         double p3, double p4, int C, long long T,
+                         int newton_iters, int os, void* stream) {
+  (void)st_in;
+  return launch_zdf_reverse<double>(rec, gy, gst, dx, dst, p0, p1, p2, p3, p4,
+                                    C, T, newton_iters, os, stream);
 }
 
 // The adjoints: x, gy, dx (C, T); st_in, gst, dst, st_fin (8, C); ck the

@@ -17,13 +17,24 @@ as `MoogFilter.process` defines it; os = 1 is the TPU kernels' contract.
 `moog_ladder` and `moog_zdf` run through `MoogLadderFn` / `MoogZDFFn`,
 differentiable in x and state8: the port of the reference's custom VJP
 `algodsp_tpu/filters/moog.py::_kernel_chunk_diff`, whose backward is the
-VJP of the per-sample scan over the zero-stuffed input. CUDA tensors
-(float32 or float64) launch the forward kernels and, in the backward,
-the adjoint kernels `moog_ladder_adjoint` / `moog_zdf_adjoint`; CPU
-tensors use the plain versions: `moog_ladder_plain` / `moog_zdf_plain`,
-a per-sample loop over the step functions of `algodsp_tpu/filters/
-moog.py`, and `moog_ladder_adjoint_plain` / `moog_zdf_adjoint_plain`,
-explicit reverse sweeps written to the adjoint kernels' formulas.
+VJP of the per-sample scan over the zero-stuffed input. Two routes
+compute that backward, to the same bits:
+- the record route, where the call's record fits RECORD_BUDGET_BYTES:
+  the forward under autograd runs the recording instance of the kernel
+  (`moog_ladder_record` / `moog_zdf_record`), which also stores each
+  ladder step's values for the reverse, in the layout `record_shape`
+  gives; the backward is one reverse sweep over them
+  (`moog_ladder_reverse` / `moog_zdf_reverse`);
+- the checkpoint route, for a larger record: the forward saves (x,
+  state8) only, and the backward's adjoint kernel (`moog_ladder_adjoint`
+  / `moog_zdf_adjoint`) walks the forward again from checkpoints.
+CUDA tensors (float32 or float64) launch the kernels; CPU tensors use the
+plain versions: `moog_ladder_plain` / `moog_zdf_plain`, a per-sample loop
+over the step functions of `algodsp_tpu/filters/moog.py` (with
+`record`, also the record), `moog_ladder_reverse_plain` /
+`moog_zdf_reverse_plain`, explicit reverse sweeps over a record written
+to the kernels' formulas, and `moog_*_adjoint_plain`, the walk and the
+sweep in one call.
 
 The adjoint is the reference's function exactly: the clip passes no
 gradient where it cuts and half where its argument sits on the bound
@@ -45,10 +56,10 @@ from algodsp_tpu_torch import _build
 
 STATE_LIMIT = 32.0
 MAX_NEWTON_ITERS = 8
-# moog_ladder_f32/f64(x, st_in, st_out, y, p0..p4, C, T, mode, os, stream)
-# and moog_zdf_f32/f64(x, st_in, st_out, y, p0..p4, C, T, newton_iters, os,
-# stream)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_double] * 5
+# moog_ladder_f32/f64(x, st_in, st_out, y, rec, p0..p4, C, T, mode, os,
+# stream) and moog_zdf_f32/f64 with newton_iters in mode's place; rec
+# null runs K5 / K6, otherwise their recording instance
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_double] * 5
              + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
 # moog_ladder_adjoint_f32/f64(x, st_in, gy, gst, dx, dst, ck, st_fin,
@@ -57,6 +68,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_double] * 5
 _ADJ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_double] * 5
                  + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# moog_ladder_reverse_f32/f64(rec, st_in, gy, gst, dx, dst, p0..p4, C, T,
+# mode, os, stream), and moog_zdf_reverse_* with newton_iters in mode's
+# place
+_REV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_double] * 5
+                 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p])
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # The adjoint kernels' shared memory a block (one warp, 32 channels):
@@ -65,13 +82,39 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 ADJ_SMEM_BYTES = 46 * 1024
 ADJ_MAX_SEGMENT = 64
 LADDER_RECORD = 9
+# The largest record one call keeps for its backward; a call whose record
+# would be larger takes the checkpoint route. 4 GiB is 1/20 of an H100's
+# 80 GB, so a graph of a few such calls fits beside its activations, and
+# it holds the largest record the paths make: 128 x 2^16 ZDF at newton 8
+# (2.0 GB; the chain block's is 4.7 MB). The reference keeps a chunk's
+# per-step residuals whatever their size.
+RECORD_BUDGET_BYTES = 4 << 30
+_LANES = 32
+
+
+ZDF_UPDATE = 6
 
 
 def zdf_record(newton_iters: int) -> int:
     """Values a ZDF step keeps for its reverse: tanh of the four stages,
     four clip masks, four tanh a ladder pass (newton_iters + 1 passes),
-    and each Newton update's Jacobian and step."""
-    return 12 + 6 * newton_iters
+    and each Newton update's Jacobian and step (ZDF_UPDATE values an
+    update with its pass's tanh)."""
+    return 12 + ZDF_UPDATE * newton_iters
+
+
+def record_shape(c: int, t: int, os: int, nv: int) -> tuple:
+    """The record's layout: (ceil(C / 32) blocks of 32 channels, T * os
+    steps, nv values, 32 lanes), so one block's record is contiguous and
+    step-major, and value v of step k of channel c is at
+    [c // 32, k, v, c % 32] (the lanes past C are padding)."""
+    return (-(-c // _LANES), t * os, nv, _LANES)
+
+
+def record_bytes(c: int, t: int, os: int, nv: int, itemsize: int) -> int:
+    """Bytes of the record of one call (padding lanes included)."""
+    b, k, v, w = record_shape(c, t, os, nv)
+    return b * k * v * w * itemsize
 
 
 def adjoint_plan(record: int, itemsize: int) -> int:
@@ -124,12 +167,14 @@ def _stuffed(x, os: int):
 
 
 def moog_ladder_plain(x, state8, params, *, fast_tanh: bool,
-                      huovilainen: bool, os: int = 1):
+                      huovilainen: bool, os: int = 1, record: bool = False):
     """Plain PyTorch K5, one time step at a time (`moog.py:107-140`),
-    over x zero-stuffed by `os`, keeping every os-th output."""
-    st8, y, _ = _ladder_walk(x, state8, params, fast_tanh, huovilainen, os,
-                             record=False)
-    return st8, y
+    over x zero-stuffed by `os`, keeping every os-th output. With
+    `record`, returns (new state8, y, record) as the recording kernel
+    does (`record_shape`, the LADDER_RECORD values of `_ladder_walk`)."""
+    st8, y, recs = _ladder_walk(x, state8, params, fast_tanh, huovilainen,
+                                os, record)
+    return (st8, y, _pack_record(recs, x.shape[0])) if record else (st8, y)
 
 
 def _ladder_walk(x, state8, params, fast_tanh, huovilainen, os, record):
@@ -182,6 +227,23 @@ def _ladder_walk(x, state8, params, fast_tanh, huovilainen, os, record):
             torch.stack(ys, -1)[..., os - 1::os], recs)
 
 
+def _pack_record(recs, c: int):
+    """A plain walk's record (per step, a tuple of nv (C,) tensors) in the
+    kernels' layout (`record_shape`), padding lanes 0."""
+    vals = torch.stack([torch.stack(r) for r in recs])      # (steps, nv, C)
+    steps, nv, _ = vals.shape
+    nb = -(-c // _LANES)
+    out = vals.new_zeros(steps, nv, nb * _LANES)
+    out[..., :c] = vals
+    return out.reshape(steps, nv, nb, _LANES).permute(2, 0, 1, 3).contiguous()
+
+
+def _record_steps(record, c: int):
+    """The record (`record_shape`) as (steps, nv, C)."""
+    nb, steps, nv, w = record.shape
+    return record.permute(1, 2, 0, 3).reshape(steps, nv, nb * w)[..., :c]
+
+
 def _cotangent_ticks(gy, os: int, n: int, osc: float):
     """osc * gy on the last tick of each sample, 0 on the others: the
     output cotangent of each of the n ladder steps."""
@@ -190,17 +252,16 @@ def _cotangent_ticks(gy, os: int, n: int, osc: float):
     return g
 
 
-def moog_ladder_adjoint_plain(x, state8, params, gy, gstate8, *,
+def moog_ladder_reverse_plain(record, state8, params, gy, gstate8, *,
                               fast_tanh: bool, huovilainen: bool,
-                              os: int = 1, return_state: bool = False):
-    """Plain PyTorch reverse sweep of K5: the VJP of `moog_ladder_plain`
-    (the reference's scan) at (x, state8) for the cotangents gy (C, T) of
-    y and gstate8 (8, C) of the new state. Returns (dx (C, T), dstate8
-    (8, C)), and the walk's final state8 with `return_state`.
+                              os: int = 1):
+    """Plain PyTorch reverse sweep of K5 over its record (`record_shape`,
+    as `moog_ladder_plain(..., record=True)` or the recording kernel
+    writes it) of the walk from state8: (dx (C, T), dstate8 (8, C)) for
+    the cotangents gy (C, T) of y and gstate8 (8, C) of the new state.
 
-    The walk records each step's LADDER_RECORD values; the sweep runs the
-    steps backward with the carries g = d/d(s0..s3, t0..t2) of the state
-    after the step, in the adjoint kernel's order:
+    The sweep runs the steps backward with the carries g = d/d(s0..s3,
+    t0..t2) of the state after the step, in the reverse kernels' order:
       g_s3 += osc gy (last tick of a sample); gv3 = m3 g_s3;
       g_t2 += coef gv3; g_s2 += d2 g_t2; gv2 = m2 g_s2; ... ; gv0 = m0 g_s0;
       gu = cu gv0; dx_run = ig gu;
@@ -208,18 +269,18 @@ def moog_ladder_adjoint_plain(x, state8, params, gy, gstate8, *,
     gv_i, g_s3 = q3 gv3 + w (-fb gu), w = 1/2 for Huovilainen's first
     step (whose feedback is (s3 + prev) / 2) and 1 otherwise (the
     feedback is s3). dx = os dx_run on each first tick."""
+    del fast_tanh   # the record holds the tanh slopes of either tanh
     coef, ds, fb, ig, osc = (float(p) for p in params)
-    st8, _, recs = _ladder_walk(x, state8, params, fast_tanh, huovilainen,
-                                os, record=True)
-    dtype = st8.dtype
+    dtype = record.dtype
+    recs = _record_steps(record, state8.shape[1])
     gst = gstate8.to(dtype)
-    gys = _cotangent_ticks(gy.to(dtype), os, len(recs), osc)
+    gys = _cotangent_ticks(gy.to(dtype), os, recs.shape[0], osc)
     g_s = [gst[0], gst[1], gst[2], gst[3] + gst[7]]
     g_t = [gst[4], gst[5], gst[6]]
     dx_run = torch.empty_like(gys)
     g_prev = torch.zeros_like(gst[7])
-    for i in range(len(recs) - 1, -1, -1):
-        cu, d0, d1, d2, q3, m0, m1, m2, m3 = recs[i]
+    for i in range(recs.shape[0] - 1, -1, -1):
+        cu, d0, d1, d2, q3, m0, m1, m2, m3 = recs[i].unbind(0)
         g_s[3] = g_s[3] + gys[..., i]
         gv3 = m3 * g_s[3]
         g_t[2] = g_t[2] + coef * gv3
@@ -246,22 +307,42 @@ def moog_ladder_adjoint_plain(x, state8, params, gy, gstate8, *,
             t = torch.tanh(ds * s_in[j])
             g_s[j] = g_s[j] + g_t[j] * (ds * (1 - t * t))
         g_t = [torch.zeros_like(v) for v in g_t]
-    out = (os * dx_run[..., ::os], torch.stack(g_s + g_t + [g_prev]))
+    return os * dx_run[..., ::os], torch.stack(g_s + g_t + [g_prev])
+
+
+def moog_ladder_adjoint_plain(x, state8, params, gy, gstate8, *,
+                              fast_tanh: bool, huovilainen: bool,
+                              os: int = 1, return_state: bool = False):
+    """Plain PyTorch VJP of `moog_ladder_plain` (the reference's scan) at
+    (x, state8) for the cotangents gy (C, T) and gstate8 (8, C): the
+    recording walk and `moog_ladder_reverse_plain` in one call. Returns
+    (dx (C, T), dstate8 (8, C)), and the walk's final state8 with
+    `return_state`."""
+    st8, _, rec = moog_ladder_plain(x, state8, params, fast_tanh=fast_tanh,
+                                    huovilainen=huovilainen, os=os,
+                                    record=True)
+    out = moog_ladder_reverse_plain(rec, state8, params, gy, gstate8,
+                                    fast_tanh=fast_tanh,
+                                    huovilainen=huovilainen, os=os)
     return out + (st8,) if return_state else out
 
 
-def moog_zdf_plain(x, state8, params, *, newton_iters: int, os: int = 1):
+def moog_zdf_plain(x, state8, params, *, newton_iters: int, os: int = 1,
+                   record: bool = False):
     """Plain PyTorch K6, one time step at a time (`moog.py:142-183`),
-    over x zero-stuffed by `os`, keeping every os-th output."""
-    st8, y, _ = _zdf_walk(x, state8, params, newton_iters, os, record=False)
-    return st8, y
+    over x zero-stuffed by `os`, keeping every os-th output. With
+    `record`, returns (new state8, y, record) as the recording kernel
+    does (`record_shape`, the `zdf_record` values of `_zdf_walk`)."""
+    st8, y, recs = _zdf_walk(x, state8, params, newton_iters, os, record)
+    return (st8, y, _pack_record(recs, x.shape[0])) if record else (st8, y)
 
 
 def _zdf_walk(x, state8, params, newton_iters, os, record):
-    """K6's plain walk; with `record`, also each step's values for the
-    reverse: (ts (tanh of the four old stages), masks (the four clips),
-    passes (newton_iters times (ty, J, q): a pass's four tanh, its
-    Jacobian and its Newton step), ty of the last pass)."""
+    """K6's plain walk; with `record`, also each step's `zdf_record`
+    values for the reverse, in the kernels' order: 0-3 the tanh of the
+    four old stages, 4-7 the four clip masks, 8 + 6 it + (0-3, 4, 5) the
+    four tanh, the Jacobian and the step of Newton iteration it, and
+    8 + 6 newton_iters + (0-3) the four tanh of the last pass."""
     gk, shape, k, ig, osc = (float(p) for p in params)
     x = _stuffed(x, os)
     v_scale = gk / shape
@@ -297,11 +378,11 @@ def _zdf_walk(x, state8, params, newton_iters, os, record):
             flat = torch.abs(jac) < 1e-15
             q = (y3 - y3est) / torch.where(flat, 1.0, jac)
             y3est = torch.where(flat, y3est, y3est - q)
-            passes.append((ty, jac, q))
+            passes += [*ty, jac, q]
         v, y3, _, ty = ladder(y3est)
         w = [si + 2 * vi for si, vi in zip(s, v)]
         if record:
-            recs.append((ts, [_clip_mask(wi) for wi in w], passes, ty))
+            recs.append((*ts, *(_clip_mask(wi) for wi in w), *passes, *ty))
         s = [_clip(wi) for wi in w]
         prev = y3
         ys.append(osc * y3)
@@ -327,13 +408,13 @@ def _zdf_pass_reverse(shape, vs, k, ty, gv, g_ty, g_s, g_ts):
     return gz, -k * gz
 
 
-def moog_zdf_adjoint_plain(x, state8, params, gy, gstate8, *,
-                           newton_iters: int, os: int = 1,
-                           return_state: bool = False):
-    """Plain PyTorch reverse sweep of K6: the VJP of `moog_zdf_plain` (the
-    reference's scan, its Newton loop unrolled) at (x, state8) for the
-    cotangents gy (C, T) and gstate8 (8, C). Returns (dx (C, T),
-    dstate8 (8, C)), and the walk's final state8 with `return_state`.
+def moog_zdf_reverse_plain(record, state8, params, gy, gstate8, *,
+                           newton_iters: int, os: int = 1):
+    """Plain PyTorch reverse sweep of K6 over its record (`record_shape`,
+    as `moog_zdf_plain(..., record=True)` or the recording kernel writes
+    it) for the cotangents gy (C, T) and gstate8 (8, C). Returns (dx
+    (C, T), dstate8 (8, C)); state8 gives only C (ZDF's reverse reads
+    none of it).
 
     Per step, backward: the clips (g_si = m_i g_Si, gv_i = 2 m_i g_Si),
     y3 = v3 + s3 (its cotangent g_prev + osc gy), the last pass; then
@@ -343,20 +424,27 @@ def moog_zdf_adjoint_plain(x, state8, params, gy, gstate8, *,
     g_e -= g_r, and its pass reversed with gv3 = g_r and the Jacobian's
     g_ty_i = -k g_J prod_{j != i} D_j (-2 gk ty_i). The stages' tanh
     ts_i collect g_ts, which reach the stages through shape (1 - ts_i^2);
-    g_e is the cotangent of the previous step's y3 (prev)."""
+    g_e is the cotangent of the previous step's y3 (prev). The quotients
+    by J are divisions (the reverse kernel forms them from 1 / J, to the
+    same rounding where nothing over- or underflows)."""
     gk, shape, k, ig, osc = (float(p) for p in params)
     vs = gk / shape
-    st8, _, recs = _zdf_walk(x, state8, params, newton_iters, os,
-                             record=True)
-    dtype = st8.dtype
+    dtype = record.dtype
+    recs = _record_steps(record, state8.shape[1])
+    if recs.shape[1] != zdf_record(newton_iters):
+        raise ValueError(f"moog_zdf_reverse_plain: a record of "
+                         f"{recs.shape[1]} values a step is not that of "
+                         f"{newton_iters} Newton iterations")
     gst = gstate8.to(dtype)
-    gys = _cotangent_ticks(gy.to(dtype), os, len(recs), osc)
+    gys = _cotangent_ticks(gy.to(dtype), os, recs.shape[0], osc)
     g_S = [gst[0], gst[1], gst[2], gst[3]]
     g_p = gst[7]
     dx_run = torch.empty_like(gys)
     zero = torch.zeros_like(g_p)
-    for i in range(len(recs) - 1, -1, -1):
-        ts, masks, passes, ty = recs[i]
+    for i in range(recs.shape[0] - 1, -1, -1):
+        r = recs[i].unbind(0)
+        ts, masks = r[:4], r[4:8]
+        ty = r[8 + ZDF_UPDATE * newton_iters:]
         gy3 = g_p + gys[..., i]
         g_s = [m * g for m, g in zip(masks, g_S)]
         gv = [2 * g for g in g_s]
@@ -365,7 +453,9 @@ def moog_zdf_adjoint_plain(x, state8, params, gy, gstate8, *,
         g_ts = [zero] * 4
         g_inp, g_e = _zdf_pass_reverse(shape, vs, k, ty, gv, [zero] * 4, g_s,
                                        g_ts)
-        for ty_p, jac, q in reversed(passes):
+        for it in range(newton_iters - 1, -1, -1):
+            u = 8 + ZDF_UPDATE * it
+            ty_p, jac, q = r[u:u + 4], r[u + 4], r[u + 5]
             flat = torch.abs(jac) < 1e-15
             g_q = -g_e
             g_r = torch.where(flat, 0.0, g_q / jac).to(dtype)
@@ -386,8 +476,23 @@ def moog_zdf_adjoint_plain(x, state8, params, gy, gstate8, *,
                for g, gt, t in zip(g_s, g_ts, ts)]
         g_p = g_e
         dx_run[..., i] = ig * g_inp
-    out = (os * dx_run[..., ::os],
-           torch.stack(g_S + [gst[4], gst[5], gst[6], g_p]))
+    return (os * dx_run[..., ::os],
+            torch.stack(g_S + [gst[4], gst[5], gst[6], g_p]))
+
+
+def moog_zdf_adjoint_plain(x, state8, params, gy, gstate8, *,
+                           newton_iters: int, os: int = 1,
+                           return_state: bool = False):
+    """Plain PyTorch VJP of `moog_zdf_plain` (the reference's scan, its
+    Newton loop unrolled) at (x, state8) for the cotangents gy (C, T) and
+    gstate8 (8, C): the recording walk and `moog_zdf_reverse_plain` in
+    one call. Returns (dx (C, T), dstate8 (8, C)), and the walk's final
+    state8 with `return_state`."""
+    st8, _, rec = moog_zdf_plain(x, state8, params,
+                                 newton_iters=newton_iters, os=os,
+                                 record=True)
+    out = moog_zdf_reverse_plain(rec, state8, params, gy, gstate8,
+                                 newton_iters=newton_iters, os=os)
     return out + (st8,) if return_state else out
 
 
@@ -402,6 +507,13 @@ def _check(name, x, state8, params, os):
                          f"{tuple(state8.shape)}")
     if len(params) != 5:
         raise ValueError(f"{name}: takes 5 parameters, got {len(params)}")
+
+
+def _check_record(name, record, gy, os, nv):
+    want = record_shape(gy.shape[0], gy.shape[1], os, nv)
+    if tuple(record.shape) != want:
+        raise ValueError(f"{name}: record must be {want} (record_shape), "
+                         f"got {tuple(record.shape)}")
 
 
 def _check_newton(name, newton_iters):
@@ -428,19 +540,24 @@ def _entry(name, symbol, x, argtypes, tensors):
     return fn
 
 
-def _launch(name, symbol, x, state8, params, last_arg, os):
-    """Run kernel `symbol` of csrc/moog.cu on CUDA tensors; returns
-    (new state8, y)."""
+def _launch(name, symbol, x, state8, params, last_arg, os, nv=0):
+    """Run kernel `symbol` of csrc/moog.cu on CUDA tensors; returns (new
+    state8, y), and with nv > 0 its recording instance's record too
+    (`record_shape`, nv values a step)."""
     c, t = x.shape
     fn = _entry(name, symbol, x, _ARGTYPES, [("state8", state8, (8, c))])
     y = torch.empty_like(x)
     st_out = torch.empty_like(state8)
+    rec = (torch.empty(record_shape(c, t, os, nv), dtype=x.dtype,
+                       device=x.device) if nv else None)
     with torch.cuda.device(x.device):
         code = fn(_build.ptr(x), _build.ptr(state8), _build.ptr(st_out),
-                  _build.ptr(y), *(float(p) for p in params), c, t, last_arg,
-                  os, _build.stream_of(x))
+                  _build.ptr(y), ctypes.c_void_p(0 if rec is None
+                                                 else rec.data_ptr()),
+                  *(float(p) for p in params), c, t, last_arg, os,
+                  _build.stream_of(x))
     _build.check("moog", code, name)
-    return st_out, y
+    return (st_out, y, rec) if nv else (st_out, y)
 
 
 def _launch_adjoint(name, symbol, x, state8, params, gy, gstate8, last_arg,
@@ -470,37 +587,135 @@ def _launch_adjoint(name, symbol, x, state8, params, gy, gstate8, last_arg,
     return (dx, dst, st_fin) if return_state else (dx, dst)
 
 
-def _ladder(x, state8, params, fast_tanh, huovilainen, os):
-    """K5 for a CUDA tensor, the plain version for a CPU one."""
+def _launch_reverse(name, symbol, record, state8, params, gy, gstate8,
+                    last_arg, os, nv):
+    """Run reverse kernel `symbol` of csrc/moog.cu on CUDA tensors over
+    `record` (`record_shape`, nv values a step); returns (dx, dstate8)."""
+    c, t = gy.shape
+    fn = _entry(name, symbol, gy, _REV_ARGTYPES,
+                [("record", record, record_shape(c, t, os, nv)),
+                 ("state8", state8, (8, c)), ("gstate8", gstate8, (8, c))])
+    if record.data_ptr() % 16:
+        raise ValueError(f"{name}: the record must be 16-byte aligned (its "
+                         f"stages are read by bulk copies)")
+    dx = torch.empty_like(gy)
+    dst = torch.empty_like(gstate8)
+    with torch.cuda.device(gy.device):
+        code = fn(_build.ptr(record), _build.ptr(state8), _build.ptr(gy),
+                  _build.ptr(gstate8), _build.ptr(dx), _build.ptr(dst),
+                  *(float(p) for p in params), c, t, last_arg, os,
+                  _build.stream_of(gy))
+    _build.check("moog", code, name)
+    return dx, dst
+
+
+def _ladder(x, state8, params, fast_tanh, huovilainen, os, record=False):
+    """K5 (its recording instance with `record`) for a CUDA tensor, the
+    plain version for a CPU one."""
     if x.device.type == "cpu":
         return moog_ladder_plain(x, state8, params, fast_tanh=fast_tanh,
-                                 huovilainen=huovilainen, os=os)
+                                 huovilainen=huovilainen, os=os,
+                                 record=record)
     mode = 2 if huovilainen else int(bool(fast_tanh))
-    out = _launch("moog_ladder", "moog_ladder", x, state8, params, mode, os)
+    out = _launch("moog_ladder", "moog_ladder", x, state8, params, mode, os,
+                  LADDER_RECORD if record else 0)
     moog_ladder.launches += 1
+    moog_ladder.record_launches += int(record)
     return out
 
 
-def _zdf(x, state8, params, newton_iters, os):
-    """K6 for a CUDA tensor, the plain version for a CPU one."""
+def _zdf(x, state8, params, newton_iters, os, record=False):
+    """K6 (its recording instance with `record`) for a CUDA tensor, the
+    plain version for a CPU one."""
     if x.device.type == "cpu":
         return moog_zdf_plain(x, state8, params, newton_iters=newton_iters,
-                              os=os)
+                              os=os, record=record)
     out = _launch("moog_zdf", "moog_zdf", x, state8, params,
-                  int(newton_iters), os)
+                  int(newton_iters), os,
+                  zdf_record(newton_iters) if record else 0)
     moog_zdf.launches += 1
+    moog_zdf.record_launches += int(record)
     return out
+
+
+def moog_ladder_record(x, state8, params, *, fast_tanh: bool = False,
+                       huovilainen: bool = False, os: int = 1):
+    """K5's recording instance, not differentiable: (new state8, y,
+    record), y and the state bit-equal to K5's, the record in the layout
+    of `record_shape` (LADDER_RECORD values a step) for
+    `moog_ladder_reverse`. CPU tensors run the plain walk. Counted in
+    `moog_ladder.launches` and `.record_launches`."""
+    _check("moog_ladder_record", x, state8, params, os)
+    return _ladder(x, state8, params, fast_tanh, huovilainen, os,
+                   record=True)
+
+
+def moog_zdf_record(x, state8, params, *, newton_iters: int = 4,
+                    os: int = 1):
+    """K6's recording instance, as `moog_ladder_record` (`zdf_record`
+    values a step)."""
+    _check("moog_zdf_record", x, state8, params, os)
+    _check_newton("moog_zdf_record", newton_iters)
+    return _zdf(x, state8, params, newton_iters, os, record=True)
+
+
+def moog_ladder_reverse(record, state8, params, gy, gstate8, *,
+                        fast_tanh: bool = False, huovilainen: bool = False,
+                        os: int = 1):
+    """The reverse sweep of K5 over its record (`moog_ladder_record`'s)
+    of the walk from state8: (dx, dstate8) for the cotangents gy (C, T)
+    and gstate8 (8, C), bit for bit those of `moog_ladder_adjoint` on the
+    card. CUDA tensors run the kernel, CPU tensors
+    `moog_ladder_reverse_plain`. `launches` counts the kernel's
+    launches."""
+    _check("moog_ladder_reverse", gy, state8, params, os)
+    _check_record("moog_ladder_reverse", record, gy, os, LADDER_RECORD)
+    if gy.device.type == "cpu":
+        return moog_ladder_reverse_plain(
+            record, state8, params, gy, gstate8, fast_tanh=fast_tanh,
+            huovilainen=huovilainen, os=os)
+    mode = 2 if huovilainen else int(bool(fast_tanh))
+    out = _launch_reverse("moog_ladder_reverse", "moog_ladder_reverse",
+                          record, state8, params, gy, gstate8, mode, os,
+                          LADDER_RECORD)
+    moog_ladder_reverse.launches += 1
+    return out
+
+
+moog_ladder_reverse.launches = 0
+
+
+def moog_zdf_reverse(record, state8, params, gy, gstate8, *,
+                     newton_iters: int = 4, os: int = 1):
+    """The reverse sweep of K6 over its record (`moog_zdf_record`'s), as
+    `moog_ladder_reverse`. `launches` counts the kernel's launches."""
+    _check("moog_zdf_reverse", gy, state8, params, os)
+    _check_newton("moog_zdf_reverse", newton_iters)
+    _check_record("moog_zdf_reverse", record, gy, os,
+                  zdf_record(newton_iters))
+    if gy.device.type == "cpu":
+        return moog_zdf_reverse_plain(record, state8, params, gy, gstate8,
+                                      newton_iters=newton_iters, os=os)
+    out = _launch_reverse("moog_zdf_reverse", "moog_zdf_reverse", record,
+                          state8, params, gy, gstate8, int(newton_iters), os,
+                          zdf_record(newton_iters))
+    moog_zdf_reverse.launches += 1
+    return out
+
+
+moog_zdf_reverse.launches = 0
 
 
 def moog_ladder_adjoint(x, state8, params, gy, gstate8, *,
                         fast_tanh: bool = False, huovilainen: bool = False,
                         os: int = 1, return_state: bool = False):
-    """K5's adjoint (`moog_ladder_adjoint_plain`'s function): (dx, dstate8)
-    for the cotangents gy (C, T) and gstate8 (8, C), and with
-    `return_state` the final state8 the adjoint's own walk recomputed
-    (the forward's, bit for bit, on the card). CUDA tensors run the
-    kernel (float32 or float64, contiguous), CPU tensors the plain
-    reverse sweep. `launches` counts the kernel's launches."""
+    """K5's adjoint from (x, state8) alone, the checkpoint route
+    (`moog_ladder_adjoint_plain`'s function): (dx, dstate8) for the
+    cotangents gy (C, T) and gstate8 (8, C), and with `return_state` the
+    final state8 the adjoint's own walk recomputed (the forward's, bit
+    for bit, on the card). CUDA tensors run the kernel (float32 or
+    float64, contiguous), CPU tensors the plain walk and sweep.
+    `launches` counts the kernel's launches."""
     _check("moog_ladder_adjoint", x, state8, params, os)
     if x.device.type == "cpu":
         return moog_ladder_adjoint_plain(
@@ -519,8 +734,9 @@ moog_ladder_adjoint.launches = 0
 
 def moog_zdf_adjoint(x, state8, params, gy, gstate8, *, newton_iters: int = 4,
                      os: int = 1, return_state: bool = False):
-    """K6's adjoint (`moog_zdf_adjoint_plain`'s function), as
-    `moog_ladder_adjoint`. `launches` counts the kernel's launches."""
+    """K6's adjoint from (x, state8) alone (`moog_zdf_adjoint_plain`'s
+    function), as `moog_ladder_adjoint`. `launches` counts the kernel's
+    launches."""
     _check("moog_zdf_adjoint", x, state8, params, os)
     _check_newton("moog_zdf_adjoint", newton_iters)
     if x.device.type == "cpu":
@@ -537,47 +753,73 @@ def moog_zdf_adjoint(x, state8, params, gy, gstate8, *, newton_iters: int = 4,
 moog_zdf_adjoint.launches = 0
 
 
+def _records(x, os, nv) -> bool:
+    """The record route for a call over x: its record fits
+    RECORD_BUDGET_BYTES (read at each call). Sizes alone decide."""
+    return record_bytes(x.shape[0], x.shape[1], os, nv,
+                        x.dtype.itemsize) <= RECORD_BUDGET_BYTES
+
+
 class MoogLadderFn(torch.autograd.Function):
     """(new state8, y) of K5 over (x, state8), differentiable in both (the
-    reference's `_kernel_chunk_diff`). It saves its inputs only, as the
-    reference does; the backward's adjoint recomputes the trajectory. A
-    cotangent that autograd leaves out arrives as zeros."""
+    reference's `_kernel_chunk_diff`). `grad` says whether a backward is
+    wanted (`_build.wants_grad` at the call): without one the forward is
+    K5 and saves nothing; with one it saves the recording instance's
+    record and the backward is `moog_ladder_reverse`, or, where the
+    record would pass RECORD_BUDGET_BYTES, it saves (x, state8) and the
+    backward is `moog_ladder_adjoint`. A cotangent that autograd leaves
+    out arrives as zeros."""
 
     @staticmethod
-    def forward(ctx, x, state8, params, fast_tanh, huovilainen, os):
-        out = _ladder(x, state8, params, fast_tanh, huovilainen, os)
-        ctx.save_for_backward(x, state8)
+    def forward(ctx, x, state8, params, fast_tanh, huovilainen, os, grad):
         ctx.args = (params, fast_tanh, huovilainen, os)
-        return out
+        ctx.recorded = grad and _records(x, os, LADDER_RECORD)
+        if ctx.recorded:
+            st_out, y, rec = _ladder(x, state8, params, fast_tanh,
+                                     huovilainen, os, record=True)
+            ctx.save_for_backward(rec, state8)
+            return st_out, y
+        if grad:
+            ctx.save_for_backward(x, state8)
+        return _ladder(x, state8, params, fast_tanh, huovilainen, os)
 
     @staticmethod
     def backward(ctx, g_state8, g_y):
-        x, state8 = ctx.saved_tensors
+        saved, state8 = ctx.saved_tensors
         params, fast_tanh, huovilainen, os = ctx.args
-        dx, dst = moog_ladder_adjoint(
-            x, state8, params, g_y.contiguous(), g_state8.contiguous(),
-            fast_tanh=fast_tanh, huovilainen=huovilainen, os=os)
-        return dx, dst, None, None, None, None
+        fn = moog_ladder_reverse if ctx.recorded else moog_ladder_adjoint
+        dx, dst = fn(saved, state8, params, g_y.contiguous(),
+                     g_state8.contiguous(), fast_tanh=fast_tanh,
+                     huovilainen=huovilainen, os=os)
+        return dx, dst, None, None, None, None, None
 
 
 class MoogZDFFn(torch.autograd.Function):
-    """(new state8, y) of K6 over (x, state8), as `MoogLadderFn`."""
+    """(new state8, y) of K6 over (x, state8), as `MoogLadderFn`: the
+    record route's backward is `moog_zdf_reverse`, the checkpoint
+    route's `moog_zdf_adjoint`."""
 
     @staticmethod
-    def forward(ctx, x, state8, params, newton_iters, os):
-        out = _zdf(x, state8, params, newton_iters, os)
-        ctx.save_for_backward(x, state8)
+    def forward(ctx, x, state8, params, newton_iters, os, grad):
         ctx.args = (params, newton_iters, os)
-        return out
+        ctx.recorded = grad and _records(x, os, zdf_record(newton_iters))
+        if ctx.recorded:
+            st_out, y, rec = _zdf(x, state8, params, newton_iters, os,
+                                  record=True)
+            ctx.save_for_backward(rec, state8)
+            return st_out, y
+        if grad:
+            ctx.save_for_backward(x, state8)
+        return _zdf(x, state8, params, newton_iters, os)
 
     @staticmethod
     def backward(ctx, g_state8, g_y):
-        x, state8 = ctx.saved_tensors
+        saved, state8 = ctx.saved_tensors
         params, newton_iters, os = ctx.args
-        dx, dst = moog_zdf_adjoint(x, state8, params, g_y.contiguous(),
-                                   g_state8.contiguous(),
-                                   newton_iters=newton_iters, os=os)
-        return dx, dst, None, None, None
+        fn = moog_zdf_reverse if ctx.recorded else moog_zdf_adjoint
+        dx, dst = fn(saved, state8, params, g_y.contiguous(),
+                     g_state8.contiguous(), newton_iters=newton_iters, os=os)
+        return dx, dst, None, None, None, None
 
 
 def moog_ladder(x, state8, params, *, fast_tanh: bool = False,
@@ -585,26 +827,31 @@ def moog_ladder(x, state8, params, *, fast_tanh: bool = False,
     """K5 over x (C, T) at oversampling `os`: returns (new state8 (8, C),
     y (C, T)), differentiable in x and state8 (`MoogLadderFn`).
     params = [coef, drive_scale, feedback, input_gain, output_scale].
-    CUDA tensors run the kernels; CPU tensors run `moog_ladder_plain` and
-    `moog_ladder_adjoint_plain`. The Huovilainen ladder always takes the
-    exact tanh."""
+    CUDA tensors run the kernels; CPU tensors run their plain versions.
+    The Huovilainen ladder always takes the exact tanh. `launches` counts
+    K5's launches, `record_launches` those of its recording instance
+    among them."""
     _check("moog_ladder", x, state8, params, os)
     return MoogLadderFn.apply(x, state8, list(params), bool(fast_tanh),
-                              bool(huovilainen), os)
+                              bool(huovilainen), os,
+                              _build.wants_grad(x, state8))
 
 
 moog_ladder.launches = 0
+moog_ladder.record_launches = 0
 
 
 def moog_zdf(x, state8, params, *, newton_iters: int = 4, os: int = 1):
     """K6 over x (C, T) at oversampling `os`: returns (new state8 (8, C),
     y (C, T)), differentiable in x and state8 (`MoogZDFFn`).
     params = [zdf_gk, drive_scale, feedback, input_gain, output_scale].
-    CUDA tensors run the kernels; CPU tensors run `moog_zdf_plain` and
-    `moog_zdf_adjoint_plain`."""
+    CUDA tensors run the kernels; CPU tensors run their plain versions.
+    `launches` and `record_launches` count as `moog_ladder`'s."""
     _check("moog_zdf", x, state8, params, os)
     _check_newton("moog_zdf", newton_iters)
-    return MoogZDFFn.apply(x, state8, list(params), int(newton_iters), os)
+    return MoogZDFFn.apply(x, state8, list(params), int(newton_iters), os,
+                           _build.wants_grad(x, state8))
 
 
 moog_zdf.launches = 0
+moog_zdf.record_launches = 0

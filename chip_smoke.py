@@ -26,7 +26,13 @@ Phases, each printing its own lines:
                2, 4 and 8, newton 1-8, float64, the clip case, a
                Huovilainen state whose tanh rows are not tanh(ds s) and
                NaN in x, each with its recomputed final state against
-               the forward's bit for bit) and each autograd Function's
+               the forward's bit for bit; on every Moog case the recording
+               K5 / K6 bit-equal to K5 / K6, and the reverse kernels over
+               their record bit-equal to the adjoints (ZDF: at the adjoints'
+               bars, its quotients formed from 1 / J; bits printed); a
+               block whose record passes the budget through the
+               checkpoint adjoint, with the record route's gradients) and each
+               autograd Function's
                gradients on the card against the CPU path's, then one
                check per fault of the port (ROADMAP.md section 3): the
                explicit-state cascade and the raw envelope kernel refuse
@@ -59,8 +65,10 @@ Phases, each printing its own lines:
                K1, K3 and K4, the reverb's two streaming paths, the
                chain's time per block and real-time factor, the two
                Moog kernels at 128 ch x 2^16, the two adjoint kernels at
-               the training shapes, and the two Moog adjoints at the
-               chain block, the ZDF block and 128 ch x 2^16.
+               the training shapes, and the two Moog adjoints, the
+               recording K5 / K6 and the two reverse kernels at the
+               chain block, the ZDF block and 128 ch x 2^16 (record
+               bytes and bounds).
   7. train   — the trainer of examples/gradient_eq_fit.py at the
                flagship's width with torch.optim.Adam: IR learning of
                the flagship's 2^15-tap IR through kernel_spectra_torch
@@ -73,10 +81,13 @@ Phases, each printing its own lines:
                (Huovilainen, os 4) and the direct ZDF ladder streamed
                over 64 ch x 94 blocks of 512 under autograd with the
                state carried, differentiated in x and the initial state
-               (one adjoint launch a block, no plain version), held
-               against the card's float64 run and, for 2 blocks, the CPU
-               plain path in float64; and a fit of an input gain in front
-               of the chain's node over 8 streamed blocks (Adam);
+               (a recording forward and one reverse launch a block, no
+               checkpoint adjoint, no plain version), held against the
+               card's float64 run and, for 2 blocks, the CPU plain path
+               in float64; a fit of an input gain in front of the chain's
+               node over 8 streamed blocks (Adam); and 8 blocks of each
+               over the record budget (K5 / K6, then the checkpoint
+               adjoint), against the record route's gradients;
   9. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
@@ -151,6 +162,17 @@ def zdf_adjoint_reverse_ops(newton_iters: int) -> int:
     return 23 * (newton_iters + 1) + 26 * newton_iters + 24
 
 
+# Operations a step of the reverse kernels does: the ladder's sweep (12
+# multiplies and FMAs, the feedback's 2, 3 state updates, gy's add and
+# dx's 2); the ZDF reverse above, whose two quotients an update are each a
+# reciprocal, a multiply and two FMAs (5, counting the reciprocal as one).
+MOOG_REVERSE_OPS = 12 + 2 + 3 + 1 + 2
+
+
+def zdf_reverse_ops(newton_iters: int) -> int:
+    return 23 * (newton_iters + 1) + (26 + 8) * newton_iters + 24
+
+
 def card() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -169,6 +191,14 @@ def snr_db(ref, test) -> float:
 
 def host(t):
     return t.detach().to("cpu", copy=True).numpy()
+
+
+def bits_equal(torch, a, b) -> bool:
+    """a and b hold the same bits (NaNs and signed zeros included)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(torch.equal(a.contiguous().view(ints[a.dtype]),
+                                 b.contiguous().view(ints[b.dtype]))))
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -316,6 +346,47 @@ def moog_adjoint_call(moog_ops, mf, x, st8, gy, gst, plain=False,
               return_state=return_state)
 
 
+def moog_record_call(moog_ops, mf, x, st8):
+    """The recording instance of K5 or K6 for MoogFilter `mf` at its
+    oversampling: (new state8, y, record)."""
+    p, os = mf.kernel_params(), mf.oversampling
+    if mf.variant.value == "zdf":
+        return moog_ops.moog_zdf_record(x, st8, p, newton_iters=mf.newton_iters,
+                                        os=os)
+    return moog_ops.moog_ladder_record(
+        x, st8, p, fast_tanh="lightweight" in mf.variant.value,
+        huovilainen=mf.variant.value == "huovilainen", os=os)
+
+
+def moog_reverse_call(moog_ops, mf, rec, st8, gy, gst, plain=False):
+    """The reverse kernel's wrapper (or its plain sweep) for MoogFilter
+    `mf` over the record `rec`: (dx, dstate8)."""
+    p, os = mf.kernel_params(), mf.oversampling
+    if mf.variant.value == "zdf":
+        fn = (moog_ops.moog_zdf_reverse_plain if plain
+              else moog_ops.moog_zdf_reverse)
+        return fn(rec, st8, p, gy, gst, newton_iters=mf.newton_iters, os=os)
+    fn = (moog_ops.moog_ladder_reverse_plain if plain
+          else moog_ops.moog_ladder_reverse)
+    return fn(rec, st8, p, gy, gst, fast_tanh="lightweight" in mf.variant.value,
+              huovilainen=mf.variant.value == "huovilainen", os=os)
+
+
+def record_values(moog_ops, mf):
+    return (moog_ops.zdf_record(mf.newton_iters) if mf.variant.value == "zdf"
+            else moog_ops.LADDER_RECORD)
+
+
+def moog_reverse_work(c, t, nv, ops_per_step, os=1):
+    """Bytes (the record in, padding lanes included; gy in and dx out at
+    the base rate; state8 and its cotangent in, dstate8 out) and
+    operations (the reverse step's) of a reverse kernel over (C, T)
+    float32 at oversampling os."""
+    c_pad = -(-c // 32) * 32
+    return (4.0 * c_pad * t * os * nv + 8.0 * c * t + 96.0 * c,
+            float(ops_per_step) * c * t * os)
+
+
 def moog_adjoint_work(c, t, ops_per_step, os=1):
     """Bytes (x, gy in, dx out at the base rate; state8, its cotangent in,
     dstate8 out) and operations (the forward step's and the reverse's) of
@@ -420,7 +491,24 @@ def main() -> int:
                                          "(the custom-VJP backward of K6)",
                              "wrapper": moog_ops.moog_zdf_adjoint,
                              "errs": []},
+        "moog_ladder_reverse": {"route": "cuda",
+                                "source": "algodsp_tpu_torch/csrc/moog.cu",
+                                "replaces": "algodsp_tpu/filters/moog.py:234 "
+                                            "(the custom-VJP backward of K5, "
+                                            "over the recording K5's record)",
+                                "wrapper": moog_ops.moog_ladder_reverse,
+                                "errs": []},
+        "moog_zdf_reverse": {"route": "cuda",
+                             "source": "algodsp_tpu_torch/csrc/moog.cu",
+                             "replaces": "algodsp_tpu/filters/moog.py:234 "
+                                         "(the custom-VJP backward of K6, "
+                                         "over the recording K6's record)",
+                             "wrapper": moog_ops.moog_zdf_reverse,
+                             "errs": []},
     }
+    # K5's and K6's recording launches (counted among their launches)
+    recorders = {"moog_ladder": moog_ops.moog_ladder,
+                 "moog_zdf": moog_ops.moog_zdf}
 
     def randn(*shape):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
@@ -678,6 +766,9 @@ def main() -> int:
                 assert not torch.allclose(st8[4:7], torch.tanh(
                     mf.kernel_params()[1] * st8[:3]))
             s_k, y_k = moog_call(moog_ops, mf, xm, st8)
+            s_r, y_r, _ = moog_record_call(moog_ops, mf, xm, st8)
+            recorded = bits_equal(torch, y_r, y_k) and bits_equal(torch, s_r,
+                                                                  s_k)
             s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
             y_k, s_k = y_k.cpu(), s_k.cpu()
             err = float(torch.max(torch.abs(y_k - y_p)))
@@ -687,9 +778,10 @@ def main() -> int:
             print(f"check {name} {variant} (newton {iters}) {label}: "
                   f"C={xm.shape[0]} T={xm.shape[1]} os={mf.oversampling} "
                   f"max|err| y {err:.3e} state {s_err:.3e}, SNR vs plain "
-                  f"{snr:.1f} dB")
+                  f"{snr:.1f} dB; recording instance bit-equal {recorded}")
             assert err <= atol and s_err <= atol and snr >= 100, \
                 (name, variant, label)
+            assert recorded, (name, variant, label)
     # NaN and +-inf in x: NaN where the plain version has NaN (a NaN runs
     # on through the channel's state), the rest within the bar
     for variant in ("classic", "huovilainen", "zdf"):
@@ -702,6 +794,8 @@ def main() -> int:
         xm[2, 70] = -float("inf")
         st8 = torch.zeros(8, 4, device=dev)
         s_k, y_k = moog_call(moog_ops, mf, xm, st8)
+        s_r, y_r, _ = moog_record_call(moog_ops, mf, xm, st8)
+        recorded = bits_equal(torch, y_r, y_k) and bits_equal(torch, s_r, s_k)
         s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
         y_k, s_k = y_k.cpu(), s_k.cpu()
         nan_same = bool(torch.equal(torch.isnan(y_k), torch.isnan(y_p))
@@ -712,8 +806,9 @@ def main() -> int:
         s_err = float(torch.max(torch.abs(s_k - s_p)[s_fin]))
         print(f"check {name} {variant} NaN and +-inf in x: NaN where plain "
               f"has NaN {nan_same} ({int((~fin).sum())} samples), max|err| "
-              f"finite y {err:.3e} state {s_err:.3e}")
-        assert nan_same and bool(torch.isnan(y_k[0, 100:]).all())
+              f"finite y {err:.3e} state {s_err:.3e}; recording instance "
+              f"bit-equal {recorded}")
+        assert nan_same and bool(torch.isnan(y_k[0, 100:]).all()) and recorded
         assert err <= 1e-5 and s_err <= 1e-5, (name, variant)
     # fused oversampling: the same kernel on the zero-stuffed input, every
     # os-th output kept, bit for bit (state included)
@@ -726,14 +821,18 @@ def main() -> int:
             xm = 0.3 * randn(CHAIN_CH, 300)
             st8 = 0.2 * randn(8, CHAIN_CH)
             s_f, y_f = moog_call(moog_ops, mf, xm, st8)
+            s_r, y_r, _ = moog_record_call(moog_ops, mf, xm, st8)
+            recorded = bits_equal(torch, y_r, y_f) and bits_equal(torch, s_r,
+                                                                  s_f)
             xs = torch.zeros(CHAIN_CH, 300 * os_, device=dev)
             xs[:, ::os_] = xm * os_
             s_z, y_z = moog_call(moog_ops, mf, xs, st8, os=1)
             same = (torch.equal(y_f, y_z[:, os_ - 1::os_])
                     and torch.equal(s_f, s_z))
             print(f"check {name} {variant} fused os={os_} {CHAIN_CH}x300 vs "
-                  f"the zero-stuffed {CHAIN_CH}x{300 * os_}: bit-equal {same}")
-            assert same, (name, variant, os_)
+                  f"the zero-stuffed {CHAIN_CH}x{300 * os_}: bit-equal {same}; "
+                  f"recording instance bit-equal {recorded}")
+            assert same and recorded, (name, variant, os_)
     # one float64 call of each kernel: the same template in double with
     # libm tanh and IEEE division
     for variant in ("huovilainen", "zdf"):
@@ -742,12 +841,15 @@ def main() -> int:
         xm = 0.3 * randn(CHAIN_CH, CHAIN_BLOCK).double()
         st8 = torch.zeros(8, CHAIN_CH, dtype=torch.float64, device=dev)
         s_k, y_k = moog_call(moog_ops, mf, xm, st8)
+        s_r, y_r, _ = moog_record_call(moog_ops, mf, xm, st8)
+        recorded = bits_equal(torch, y_r, y_k) and bits_equal(torch, s_r, s_k)
         s_p, y_p = moog_call(moog_ops, mf, xm.cpu(), st8.cpu(), plain=True)
         err = float(torch.max(torch.abs(y_k.cpu() - y_p)))
         s_err = float(torch.max(torch.abs(s_k.cpu() - s_p)))
         print(f"check {name} {variant} float64 main: max|err| y {err:.3e} "
-              f"state {s_err:.3e}")
+              f"state {s_err:.3e}; recording instance bit-equal {recorded}")
         assert y_k.dtype == torch.float64 and err <= 1e-9 and s_err <= 1e-9
+        assert recorded
     # resonance 4 self-oscillates: rounding differences may grow along
     # time, so the float32 kernel is only required to stay finite; its
     # distance from the float64 plain version is printed (on an NVIDIA
@@ -838,6 +940,17 @@ def main() -> int:
                                          plain=True)
                        if dtype == f32 else (p_dx, p_dst))
         dx, dst = dx.cpu(), dst.cpu()
+        # the record route on the same inputs: the reverse kernel over the
+        # recording forward's record
+        rev_name = name.replace("_adjoint", "_reverse")
+        rec = moog_record_call(moog_ops, mf, xa, st8)[2]
+        r_dx, r_dst = (v.cpu() for v in moog_reverse_call(moog_ops, mf, rec,
+                                                          st8, gy, gst))
+        rev_bits = bits_equal(torch, r_dx, dx) and bits_equal(torch, r_dst,
+                                                              dst)
+        snr_rev = snr_db(cat(p_dx, p_dst), cat(r_dx, r_dst))
+        kernels[rev_name]["errs"].append(float(torch.max(torch.abs(
+            r_dx - p_dx))))
         same_state = bool(torch.equal(s_fin, s_fwd))
         snr_all = snr_db(cat(p_dx, p_dst), cat(dx, dst))
         snr_dx, snr_dst = snr_db(p_dx.numpy(), dx.numpy()), snr_db(
@@ -860,8 +973,17 @@ def main() -> int:
               f"to the forward's {same_state}"
               + (f"; dx exactly 0 at {cut} samples (clip), plain {int(torch.sum(p_dx == 0))}"
                  if dc else ""))
-        assert snr_all >= (100 if dtype == f32 else 200), (name, label)
+        print(f"check {rev_name} {variant} (newton {mf.newton_iters}) "
+              f"{label}: record {tuple(rec.shape)}, dx and dstate8 bit-equal "
+              f"to {name}'s {rev_bits}, SNR vs plain {snr_rev:.1f} dB")
+        bar = 100 if dtype == f32 else 200
+        assert snr_all >= bar, (name, label)
         assert same_state and exact, (name, label)
+        # the ZDF reverse forms its quotients by 1 / J from the Markstein
+        # correction (IEEE division's rounding where nothing over- or
+        # underflows): held at the plain sweep's bars, its bits printed
+        assert (snr_rev >= bar if variant == "zdf" else rev_bits), \
+            (rev_name, label)
     # NaN in x: the gradient is NaN where the plain sweep's is, and only in
     # the channel the NaN ran through; the other channels within the bar
     for variant in ("classic", "huovilainen", "zdf"):
@@ -873,17 +995,73 @@ def main() -> int:
         gy, gst = randn(4, 600), randn(8, 4)
         dx, dst = (v.cpu() for v in moog_adjoint_call(moog_ops, mf, xa, st8,
                                                       gy, gst))
+        rev_name = name.replace("_adjoint", "_reverse")
+        r_dx, r_dst = (v.cpu() for v in moog_reverse_call(
+            moog_ops, mf, moog_record_call(moog_ops, mf, xa, st8)[2], st8, gy,
+            gst))
+        rev_bits = bits_equal(torch, r_dx, dx) and bits_equal(torch, r_dst,
+                                                              dst)
         p_dx, p_dst = moog_adjoint_call(
             moog_ops, mf, *(v.cpu() for v in (xa, st8, gy, gst)), plain=True)
         nan_same = bool(torch.equal(torch.isnan(dx), torch.isnan(p_dx))
                         and torch.equal(torch.isnan(dst), torch.isnan(p_dst)))
         rest = bool(torch.isfinite(dx[1:]).all() and torch.isfinite(dst[:, 1:]).all())
         snr_rest = snr_db(cat(p_dx[1:], p_dst[:, 1:]), cat(dx[1:], dst[:, 1:]))
+        r_nan = bool(torch.equal(torch.isnan(r_dx), torch.isnan(p_dx))
+                     and torch.equal(torch.isnan(r_dst), torch.isnan(p_dst)))
+        r_rest = snr_db(cat(p_dx[1:], p_dst[:, 1:]),
+                        cat(r_dx[1:], r_dst[:, 1:]))
         print(f"check {name} {variant} NaN in x: NaN where plain has NaN "
               f"{nan_same} ({int(torch.isnan(dx).sum())} of dx's "
               f"{dx.numel()}), other channels finite {rest}, SNR vs plain "
-              f"{snr_rest:.1f} dB")
+              f"{snr_rest:.1f} dB; {rev_name} bit-equal {rev_bits}, NaN where "
+              f"plain has NaN {r_nan}, other channels {r_rest:.1f} dB")
         assert nan_same and rest and snr_rest >= 100, (name, variant)
+        assert (r_nan and r_rest >= 100 if variant == "zdf" else rev_bits), \
+            (rev_name, variant)
+    # The budget: a call whose record would pass RECORD_BUDGET_BYTES takes
+    # the checkpoint route through the Function. At the chain block and the
+    # ZDF block, the Function's gradient (autograd) with the budget as it
+    # is (the record route: one recording launch, one reverse launch) and
+    # with the budget set one byte under the block's record (K5 / K6
+    # without recording, one checkpoint-adjoint launch), on the same inputs
+    budget = moog_ops.RECORD_BUDGET_BYTES
+    for label, mf in [("chain block", chain_moog_node(MoogFilter, MoogVariant)),
+                      ("ZDF block", MoogFilter(SR, variant=MoogVariant.ZDF,
+                                               **zdf_kw, newton_iters=4))]:
+        fwd = "moog_zdf" if mf.variant.value == "zdf" else "moog_ladder"
+        xa, gy = randn(CHAIN_CH, CHAIN_BLOCK), randn(CHAIN_CH, CHAIN_BLOCK)
+        st8, gst = 0.2 * randn(8, CHAIN_CH), randn(8, CHAIN_CH)
+
+        def route():
+            xg, sg = xa.clone().requires_grad_(), st8.clone().requires_grad_()
+            before = {n: k["wrapper"].launches for n, k in kernels.items()}
+            rec0 = recorders[fwd].record_launches
+            s_out, y = moog_call(moog_ops, mf, xg, sg)
+            g = [v.cpu() for v in torch.autograd.grad((s_out, y), (xg, sg),
+                                                      (gst, gy))]
+            delta = {n: k["wrapper"].launches - before[n]
+                     for n, k in kernels.items()
+                     if k["wrapper"].launches != before[n]}
+            return g, delta, recorders[fwd].record_launches - rec0
+
+        g_rec, l_rec, r_rec = route()
+        size = moog_ops.record_bytes(CHAIN_CH, CHAIN_BLOCK, mf.oversampling,
+                                     record_values(moog_ops, mf), 4)
+        moog_ops.RECORD_BUDGET_BYTES = size - 1
+        try:
+            g_ck, l_ck, r_ck = route()
+        finally:
+            moog_ops.RECORD_BUDGET_BYTES = budget
+        same = all(bits_equal(torch, a, b) for a, b in zip(g_rec, g_ck))
+        snr_routes = snr_db(cat(*g_ck), cat(*g_rec))
+        print(f"check budget {label}: record {size} bytes; within the budget "
+              f"launches {json.dumps(l_rec)} (recording {r_rec}), one byte "
+              f"over it {json.dumps(l_ck)} (recording {r_ck}); gradients "
+              f"bit-equal {same}, SNR {snr_routes:.1f} dB")
+        assert l_rec == {fwd: 1, fwd + "_reverse": 1} and r_rec == 1, l_rec
+        assert l_ck == {fwd: 1, fwd + "_adjoint": 1} and r_ck == 0, l_ck
+        assert same if fwd == "moog_ladder" else snr_routes >= 100, label
 
     # The FIR's direct path (<= 64 taps) is elementwise float32 on the
     # card; a cuDNN conv1d in TF32 (about three decimal digits) would fall
@@ -1149,19 +1327,24 @@ def main() -> int:
     state = pipe.init_state(CHANNELS)
     for k in kernels.values():
         k["wrapper"].launches = 0
+    for f in recorders.values():
+        f.record_launches = 0
     k4.reset_counts()
     y, power = pipe.forward(x, state)
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
         k["by_path"] = {"flagship": k["wrapper"].launches}
+    rec_by_path = {"flagship": {n: f.record_launches
+                                for n, f in recorders.items()}}
     env_counts = {"flagship": k4.counts()}
     print(f"flagship launches per forward: {json.dumps(launches)}; envelope "
           f"counts {json.dumps(env_counts['flagship'])}")
     assert launches == {"biquad_cascade": 2, "envelope": 1, "fdl_conv": 1,
                         "moog_ladder": 0, "moog_zdf": 0,
                         "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
-                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0}, launches
+                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0,
+                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0}, launches
     assert env_counts["flagship"]["exact_walks"] == 0
 
     pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
@@ -1191,12 +1374,15 @@ def main() -> int:
     c_state0 = chain.init_state((CHAIN_CH,))
     for k in kernels.values():
         k["wrapper"].launches = 0
+    for f in recorders.values():
+        f.record_launches = 0
     k4.reset_counts()
     _, yc = chain.process_blocks(c_state0, xc)
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
         k["by_path"]["chain"] = k["wrapper"].launches
+    rec_by_path["chain"] = {n: f.record_launches for n, f in recorders.items()}
     env_counts["chain"] = k4.counts()
     print(f"chain launches over {CHAIN_BLOCKS} blocks of {CHAIN_CH}x"
           f"{CHAIN_BLOCK}: {json.dumps(launches)}; envelope counts "
@@ -1206,7 +1392,8 @@ def main() -> int:
                         "envelope": CHAIN_BLOCKS, "fdl_conv": CHAIN_BLOCKS,
                         "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0,
                         "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
-                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0}, launches
+                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0,
+                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0}, launches
     n8 = 8 * CHAIN_BLOCK
     chain_cpu = Chain(SR)
     chain_cpu.load_graph(raw)
@@ -1231,18 +1418,26 @@ def main() -> int:
     z_state0 = zdf.init_state((CHAIN_CH,))
     for k in kernels.values():
         k["wrapper"].launches = 0
+    for f in recorders.values():
+        f.record_launches = 0
     _, yz = streaming.scan_blocks(zdf.process, z_state0, xz,
                                   block_size=CHAIN_BLOCK)
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for k in kernels.values():
         k["by_path"]["moog_zdf_direct"] = k["wrapper"].launches
+    rec_by_path["moog_zdf_direct"] = {n: f.record_launches
+                                      for n, f in recorders.items()}
+    # no path so far wants a gradient, so none records
+    assert not any(v for r in rec_by_path.values() for v in r.values()), \
+        rec_by_path
     print(f"ZDF MoogFilter launches over {CHAIN_BLOCKS} blocks of "
           f"{CHAIN_CH}x{CHAIN_BLOCK}: {json.dumps(launches)}")
     assert launches == {"biquad_cascade": 0, "envelope": 0, "fdl_conv": 0,
                         "moog_ladder": 0, "moog_zdf": CHAIN_BLOCKS,
                         "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
-                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0}, launches
+                        "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0,
+                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0}, launches
     _, yz_cpu = streaming.scan_blocks(
         zdf.process, zdf.init_state((CHAIN_CH,), device="cpu"),
         torch.as_tensor(xz_np[:, :n8]), block_size=CHAIN_BLOCK)
@@ -1560,11 +1755,13 @@ def main() -> int:
         return seg, -(-t * mf.oversampling // seg) * 8 * c * 4
 
     gy_m, gst_m = randn(CHAIN_CH, CHAIN_BLOCK), randn(8, CHAIN_CH)
-    for name, fwd_name, mf, xa, ops in [
+    for name, fwd_name, mf, xa, ops, rev_ops in [
             ("moog_ladder_adjoint", "moog_ladder", moog_fx, xm,
-             MOOG_STEP_OPS["huovilainen"] + MOOG_ADJ_REVERSE_OPS),
+             MOOG_STEP_OPS["huovilainen"] + MOOG_ADJ_REVERSE_OPS,
+             MOOG_REVERSE_OPS),
             ("moog_zdf_adjoint", "moog_zdf", zdf, xz1,
-             zdf_step_ops(4) + zdf_adjoint_reverse_ops(4))]:
+             zdf_step_ops(4) + zdf_adjoint_reverse_ops(4),
+             zdf_reverse_ops(4))]:
         k = kernels[name]
         adj = lambda mf=mf, xa=xa, plain=False: moog_adjoint_call(
             moog_ops, mf, xa, st8m, gy_m, gst_m, plain=plain)
@@ -1584,6 +1781,39 @@ def main() -> int:
               f"operations a step), plain {k['plain_ms']:.4f} ms, library "
               f"none; segments of {seg} steps, checkpoint scratch "
               f"{k['scratch_bytes']} bytes ({gpu})")
+        # the record route at the same block: the recording forward and the
+        # reverse kernel over its record
+        kf, kr = kernels[fwd_name], kernels[name.replace("_adjoint",
+                                                          "_reverse")]
+        rec_call = lambda mf=mf, xa=xa: moog_record_call(moog_ops, mf, xa,
+                                                         st8m)
+        rec = rec_call()[2]
+        rev = lambda mf=mf, rec=rec, plain=False: moog_reverse_call(
+            moog_ops, mf, rec, st8m, gy_m, gst_m, plain=plain)
+        nv = record_values(moog_ops, mf)
+        kf["record_ms"] = graph_ms(torch, rec_call, 20)
+        kf["record_bound_ms"] = bound(
+            moog_work(CHAIN_CH, CHAIN_BLOCK, 0)[0] + rec.numel() * 4.0, 0.0)[0]
+        kr["ms_at"] = kf["ms_at"]
+        kr["ms"] = graph_ms(torch, rev, 20)
+        kr["call_ms"] = time_ms(torch, rev, 20)
+        kr["plain_ms"] = time_ms(torch, lambda rev=rev: rev(plain=True), 1,
+                                 warmup=0)
+        kr["bound_ms"], kr["bound_by"] = bound(*moog_reverse_work(
+            CHAIN_CH, CHAIN_BLOCK, nv, rev_ops, mf.oversampling))
+        kr["library_ms"] = None
+        kr["record_bytes"] = rec.numel() * 4
+        print(f"time {kr['ms_at']} record route: recording forward "
+              f"{kf['record_ms']:.4f} ms ({kf['record_ms'] / kf['ms']:.3f}x "
+              f"the forward's {kf['ms']:.4f}; bound {kf['record_bound_ms']:.6f}"
+              f" ms, bytes with the record), reverse kernel {kr['ms']:.4f} ms "
+              f"(graph replay; {kr['call_ms']:.4f} ms as back-to-back calls), "
+              f"bound {kr['bound_ms']:.6f} ms ({kr['bound_by']}; {rev_ops} "
+              f"operations a step, record {kr['record_bytes']} bytes), plain "
+              f"{kr['plain_ms']:.4f} ms, library none; gradient block kernels "
+              f"{kf['record_ms'] + kr['ms']:.4f} ms against the checkpoint "
+              f"route's {kf['ms'] + k['ms']:.4f} ({gpu})")
+        del rec
 
     # K5 (classic) and K6 at the JAX package's benchmark shape, 128 x 2^16
     # (benchmarks/run_benchmarks.py:396-405), and their adjoints; the plain
@@ -1624,6 +1854,28 @@ def main() -> int:
               f"{a_graph / tm * 1e6:.2f} ns per step, bound {a_b:.6f} ms "
               f"({a_by}), segments of {seg} steps, checkpoint scratch "
               f"{scratch} bytes ({gpu})")
+        # the record route at this shape
+        rec_w = moog_record_call(moog_ops, mf, xw, stw)[2]
+        f_graph = graph_ms(torch, lambda: moog_record_call(moog_ops, mf, xw,
+                                                           stw), 3)
+        r_graph = graph_ms(torch, lambda: moog_reverse_call(
+            moog_ops, mf, rec_w, stw, gyw, gstw), 3)
+        kr_w = kernels[ka_w["wrapper"].__name__.replace("_adjoint",
+                                                        "_reverse")]
+        kr_w["ms_by_shape"] = {"path block": kr_w["ms"], f"{cm}x{tm}": r_graph}
+        r_ops = (zdf_reverse_ops(4) if mf.variant.value == "zdf"
+                 else MOOG_REVERSE_OPS)
+        r_b, r_by = bound(*moog_reverse_work(cm, tm, record_values(moog_ops,
+                                                                   mf),
+                                             r_ops))
+        print(f"time {label} record route {cm}x{tm}: recording forward "
+              f"{f_graph:.4f} ms ({f_graph / t_graph:.3f}x the forward's), "
+              f"reverse kernel {r_graph:.4f} ms ({r_graph / tm * 1e6:.2f} ns "
+              f"per step, bound {r_b:.6f} ms ({r_by}), record "
+              f"{rec_w.numel() * 4} bytes); gradient kernels "
+              f"{f_graph + r_graph:.4f} ms against the checkpoint route's "
+              f"{t_graph + a_graph:.4f} ({gpu})")
+        del rec_w
 
     # -- 7. train: the trainer of examples/gradient_eq_fit.py ---------------------
     # Each driven part runs inside `counted`, which adds its launches to the
@@ -1861,21 +2113,35 @@ def main() -> int:
     # blocks against the CPU plain path in float64. Then a fit: a scalar
     # input gain in front of the chain's node, from 1.0 to the 1.7 that made
     # the target, over 8 streamed blocks with torch.optim.Adam. Only the
-    # float32 runs on the card count as the path's launches.
+    # float32 runs on the card count as the path's launches. Every block's
+    # record fits RECORD_BUDGET_BYTES, so each forward is the recording
+    # K5 / K6 and each backward the reverse kernel ("name.record" counts the
+    # recording launches among name's). Last, the path "moog_grad over
+    # budget": the same gradients over 8 blocks with the budget under a
+    # block's record, so each block takes the checkpoint route (K5 / K6,
+    # then the checkpoint adjoint), against the record route's.
     t_mg = time.perf_counter()
-    mg_counts = {name: 0 for name in kernels}
+    mg_keys = list(kernels) + [n + ".record" for n in recorders]
+    mg_counts = {name: 0 for name in mg_keys}
+    over_counts = {name: 0 for name in mg_keys}
+    no_mg = {name: 0 for name in mg_keys}
     moog_plain = [(moog_ops, n) for n in (
         "moog_ladder_plain", "moog_zdf_plain", "moog_ladder_adjoint_plain",
-        "moog_zdf_adjoint_plain")]
+        "moog_zdf_adjoint_plain", "moog_ladder_reverse_plain",
+        "moog_zdf_reverse_plain")]
 
-    def mg_counted(fn):
-        before = {name: k["wrapper"].launches for name, k in kernels.items()}
+    def mg_launches():
+        return {**{name: k["wrapper"].launches for name, k in kernels.items()},
+                **{n + ".record": f.record_launches
+                   for n, f in recorders.items()}}
+
+    def mg_counted(fn, into=mg_counts):
+        before = mg_launches()
         out = fn()
         torch.cuda.synchronize()
-        delta = {name: k["wrapper"].launches - before[name]
-                 for name, k in kernels.items()}
+        delta = {name: v - before[name] for name, v in mg_launches().items()}
         for name, d in delta.items():
-            mg_counts[name] += d
+            into[name] += d
         return out, delta
 
     mg_rng = np.random.default_rng(5)
@@ -1912,7 +2178,7 @@ def main() -> int:
     for label, mf, fwd_name in [("chain filter-moog node", moog_fx,
                                  "moog_ladder"),
                                 ("ZDF MoogFilter", zdf, "moog_zdf")]:
-        adj_name = fwd_name + "_adjoint"
+        rev_name = fwd_name + "_reverse"
         with plain_calls(moog_plain) as plain_n:
             (loss_m, x_t, st0), fwd_l = mg_counted(
                 lambda: stream_loss(mf, CHAIN_BLOCKS, dev, torch.float32))
@@ -1921,8 +2187,9 @@ def main() -> int:
               f"{CHAIN_BLOCKS} blocks: launches forward {json.dumps(fwd_l)}, "
               f"backward {json.dumps(bwd_l)}; plain versions called "
               f"{sum(plain_n.values())} times")
-        assert fwd_l == {**no_kernel, fwd_name: CHAIN_BLOCKS}, fwd_l
-        assert bwd_l == {**no_kernel, adj_name: CHAIN_BLOCKS}, bwd_l
+        assert fwd_l == {**no_mg, fwd_name: CHAIN_BLOCKS,
+                         fwd_name + ".record": CHAIN_BLOCKS}, fwd_l
+        assert bwd_l == {**no_mg, rev_name: CHAIN_BLOCKS}, bwd_l
         assert not any(plain_n.values()), plain_n
         assert loss_m.grad_fn is not None
         g64 = grads(*stream_loss(mf, CHAIN_BLOCKS, dev, torch.float64))
@@ -1987,17 +2254,61 @@ def main() -> int:
           f"g {g_val:.6f}, |g - {g_true}| {g_err:.3e}, loss "
           f"{float(loss_f0):.6e} -> {float(loss_fl):.6e}, {fit_ms:.4f} ms per "
           f"step (CUDA events), launches per step {json.dumps(fit_l)} ({gpu})")
-    assert fit_l == {**no_kernel, "moog_ladder": 8, "moog_ladder_adjoint": 8}
+    assert fit_l == {**no_mg, "moog_ladder": 8, "moog_ladder.record": 8,
+                     "moog_ladder_reverse": 8}, fit_l
     assert g_err < 1e-3 and float(loss_fl) < float(loss_f0)
+
+    # over the budget: 8 blocks of each ladder through the checkpoint route
+    budget = moog_ops.RECORD_BUDGET_BYTES
+    for label, mf, fwd_name in [("chain filter-moog node", moog_fx,
+                                 "moog_ladder"),
+                                ("ZDF MoogFilter", zdf, "moog_zdf")]:
+        g_rec = grads(*stream_loss(mf, 8, dev, torch.float32))
+        moog_ops.RECORD_BUDGET_BYTES = moog_ops.record_bytes(
+            CHAIN_CH, CHAIN_BLOCK, mf.oversampling, record_values(moog_ops, mf),
+            4) - 1
+        try:
+            with plain_calls(moog_plain) as plain_n:
+                (loss_o, x_o, st_o), fwd_l = mg_counted(
+                    lambda: stream_loss(mf, 8, dev, torch.float32),
+                    over_counts)
+                g_ck, bwd_l = mg_counted(lambda: grads(loss_o, x_o, st_o),
+                                         over_counts)
+        finally:
+            moog_ops.RECORD_BUDGET_BYTES = budget
+        same = all(np.array_equal(a, b) for a, b in zip(g_rec, g_ck))
+        snr_routes = min(snr_db(a, b) for a, b in zip(g_rec[:2], g_ck[:2]))
+        print(f"moog grad over budget {label} {CHAIN_CH}x{8 * CHAIN_BLOCK} in 8 "
+              f"blocks: launches forward {json.dumps(fwd_l)}, backward "
+              f"{json.dumps(bwd_l)}; plain versions called "
+              f"{sum(plain_n.values())} times; gradients against the record "
+              f"route's bit-equal {same}, dx and dstage {snr_routes:.1f} dB")
+        assert fwd_l == {**no_mg, fwd_name: 8}, fwd_l
+        assert bwd_l == {**no_mg, fwd_name + "_adjoint": 8}, bwd_l
+        assert not any(plain_n.values()), plain_n
+        assert same if fwd_name == "moog_ladder" else snr_routes >= 100
 
     for name, k in kernels.items():
         k["by_path"]["moog_grad"] = mg_counts[name]
+        k["by_path"]["moog_grad_over_budget"] = over_counts[name]
         k["launches"] = sum(k["by_path"].values())
-    print(f"moog grad launches: {json.dumps(mg_counts)}; phase "
+    rec_by_path["moog_grad"] = {n: mg_counts[n + ".record"]
+                                for n in recorders}
+    rec_by_path["moog_grad_over_budget"] = {n: over_counts[n + ".record"]
+                                            for n in recorders}
+    for n in recorders:
+        kernels[n]["record_launches_by_path"] = {
+            path: r[n] for path, r in rec_by_path.items()}
+    print(f"moog grad launches: {json.dumps(mg_counts)}; over budget "
+          f"{json.dumps(over_counts)}; phase "
           f"{time.perf_counter() - t_mg:.2f} s")
     assert all(mg_counts[name] > 0 for name in (
-        "moog_ladder", "moog_zdf", "moog_ladder_adjoint",
-        "moog_zdf_adjoint")), mg_counts
+        "moog_ladder", "moog_zdf", "moog_ladder_reverse",
+        "moog_zdf_reverse")), mg_counts
+    assert not (mg_counts["moog_ladder_adjoint"]
+                or mg_counts["moog_zdf_adjoint"]), mg_counts
+    assert all(over_counts[name] > 0 for name in (
+        "moog_ladder_adjoint", "moog_zdf_adjoint")), over_counts
 
     # -- 9. kernel list ----------------------------------------------------------
     line = {"kernels": [{
@@ -2010,7 +2321,9 @@ def main() -> int:
         "library_ms": k["library_ms"], "checked": True,
         **{key: k[key] for key in ("library_ms_by_shape", "ms_by_shape",
                                    "counts_by_path", "dv_fft_ms",
-                                   "scratch_bytes") if key in k}}
+                                   "scratch_bytes", "record_bytes",
+                                   "record_ms", "record_bound_ms",
+                                   "record_launches_by_path") if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))
     print(gpu)

@@ -2,6 +2,8 @@
 """The PyTorch/CUDA port's Moog ladder kernels (K5, K6) alone, on one card.
 
     python3 tools/moog_bench.py [ROOT ...] [--latency] [--sass DIR]
+    python3 tools/moog_bench.py --adjoint [ROOT ...]
+    python3 tools/moog_bench.py --reverse-parts
 
 Each ROOT is a checkout whose `algodsp_tpu_torch` is measured (default:
 this one), in its own process, in the order given, so that two versions
@@ -31,6 +33,30 @@ byte/operation bound, at:
            clock, beside this checkout's kernel time.
 --sass DIR writes `cuobjdump -sass` of each ROOT's built libmoog.so to
            DIR and prints the instruction mix of each kernel.
+--adjoint  times the Moog gradient instead, ROOTs in turn as above: the
+           gradient block, `moog_ladder` / `moog_zdf` under autograd and
+           torch.autograd.grad of both outputs (forward under grad +
+           backward, whichever route the ROOT takes), by graph replay
+           (device time) and as back-to-back calls, beside the no-grad
+           forward, at the chain block, the direct ZDF block and
+           128 x 2^16 (classic, ZDF newton 4); each with the launches one
+           gradient block made. A ROOT with the record route also times
+           its parts alone (the recording forward, the reverse kernel,
+           the checkpoint adjoint) and the record's bytes. With this
+           checkout among the ROOTs, it also builds tools/moog_latency.cu
+           and times K5 whose record goes to a shared-memory ring
+           instead of device memory (ladder_record_probe): what a
+           recording forward that stages its record through shared memory
+           could save at most.
+--reverse-parts  builds two copies of this checkout's csrc/moog.cu beside
+           it, one whose reverse ring asks for no record copy and one
+           that also stages no gy and flushes no dx (the walking warp
+           alone: the results are garbage, only the times count), and
+           times the reverse kernels of the three in turns at the chain
+           block, the ZDF block, 64 x 2048 classic at os 1 and 64 x 512
+           at os 4 (the same steps and record) and 128 x 2^14 classic;
+           then counts the instructions of the ladder reverse's walk loop
+           (float32, Huovilainen, os 4) in its SASS.
 Needs CUDA and nvcc; exits non-zero without them.
 """
 
@@ -178,18 +204,188 @@ def time_root(root: str) -> dict:
             "clocks.sm": card("clocks.sm,clocks.max.sm")}
 
 
+def adjoint_root(root: str) -> dict:
+    """Time ROOT's Moog gradient block at the adjoint shapes; runs in its
+    own process."""
+    sys.path.insert(0, root)
+    import torch
+    from algodsp_tpu_torch import _build
+    from algodsp_tpu_torch.chain import Chain
+    from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
+    from algodsp_tpu_torch.ops import moog as moog_ops
+
+    dev = torch.device("cuda", 0)
+    _build.build_all(("moog",))
+    recorded = hasattr(moog_ops, "moog_ladder_reverse")
+    rng = np.random.default_rng(0)
+    chain = Chain(SR)
+    chain.load_graph(json.dumps(CHAIN_MOOG))
+    cases = [
+        ("chain block", chain.runtimes["moog"].effect, 64, 512),
+        ("ZDF block", MoogFilter(SR, variant=MoogVariant.ZDF, cutoff_hz=1200.0,
+                                 resonance=2.0, drive=2.0, newton_iters=4),
+         64, 512),
+        ("128x2^16 classic", MoogFilter(SR, cutoff_hz=2000.0, resonance=0.5),
+         128, 1 << 16),
+        ("128x2^16 ZDF newton 4", MoogFilter(
+            SR, variant=MoogVariant.ZDF, cutoff_hz=2000.0, resonance=0.5,
+            newton_iters=4), 128, 1 << 16)]
+    counters = [("moog_ladder", moog_ops.moog_ladder),
+                ("moog_zdf", moog_ops.moog_zdf),
+                ("moog_ladder_adjoint", moog_ops.moog_ladder_adjoint),
+                ("moog_zdf_adjoint", moog_ops.moog_zdf_adjoint)]
+    if recorded:
+        counters += [("moog_ladder_reverse", moog_ops.moog_ladder_reverse),
+                     ("moog_zdf_reverse", moog_ops.moog_zdf_reverse)]
+    out = {}
+    for label, mf, c, n in cases:
+        p, os_ = mf.kernel_params(), mf.oversampling
+        zdf = mf.variant.value == "zdf"
+        kw = (dict(newton_iters=mf.newton_iters, os=os_) if zdf else
+              dict(huovilainen=mf.variant.value == "huovilainen", os=os_))
+        fwd = moog_ops.moog_zdf if zdf else moog_ops.moog_ladder
+        x = torch.as_tensor(0.5 * rng.standard_normal((c, n)),
+                            dtype=torch.float32, device=dev)
+        st8 = torch.as_tensor(0.2 * rng.standard_normal((8, c)),
+                              dtype=torch.float32, device=dev)
+        if mf.variant.value == "huovilainen":
+            st8[4:7] = torch.tanh(p[1] * st8[:3])
+        gy = torch.randn(c, n, device=dev)
+        gst = torch.randn(8, c, device=dev)
+        xg, sg = x.clone().requires_grad_(), st8.clone().requires_grad_()
+
+        def grad_block():
+            s_out, y = fwd(xg, sg, p, **kw)
+            return torch.autograd.grad((s_out, y), (xg, sg), (gst, gy))
+
+        reps = 20 if n <= 512 else 3
+        before = {k: getattr(f, "launches") for k, f in counters}
+        rec0 = fwd.__dict__.get("record_launches", 0)
+        grad_block()
+        torch.cuda.synchronize()
+        launches = {k: f.launches - before[k] for k, f in counters
+                    if f.launches - before[k]}
+        if recorded:
+            launches["record_launches"] = fwd.record_launches - rec0
+        row = {"launches": launches,
+               "forward_ms": graph_ms(torch, lambda: fwd(x, st8, p, **kw),
+                                      reps)}
+        try:
+            row["grad_ms"] = graph_ms(torch, grad_block, reps)
+        except RuntimeError as exc:     # the ROOT's backward would not capture
+            row["grad_ms"] = None
+            row["graph_error"] = str(exc)[:200]
+        row["grad_call_ms"] = events_ms(torch, grad_block, reps)
+        if recorded:
+            rec_fn = moog_ops.moog_zdf_record if zdf else \
+                moog_ops.moog_ladder_record
+            rev_fn = moog_ops.moog_zdf_reverse if zdf else \
+                moog_ops.moog_ladder_reverse
+            adj_fn = moog_ops.moog_zdf_adjoint if zdf else \
+                moog_ops.moog_ladder_adjoint
+            rec = rec_fn(x, st8, p, **kw)[2]
+            row["record_ms"] = graph_ms(torch, lambda: rec_fn(x, st8, p, **kw),
+                                        reps)
+            row["reverse_ms"] = graph_ms(
+                torch, lambda: rev_fn(rec, st8, p, gy, gst, **kw), reps)
+            row["adjoint_ms"] = graph_ms(
+                torch, lambda: adj_fn(x, st8, p, gy, gst, **kw), reps)
+            row["record_bytes"] = rec.numel() * rec.element_size()
+        out[label] = row
+    return {"root": root, "recorded": recorded, "shapes": out,
+            "clocks.sm": card("clocks.sm,clocks.max.sm")}
+
+
+def events_ms(torch, fn, reps: int) -> float:
+    """Host-visible ms of one call: reps calls back to back between two
+    CUDA events, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def record_probe(torch) -> dict:
+    """ms of K5 (Huovilainen os 4 at the chain block, classic os 1 at
+    128 x 2^16), of its recording instance, and of ladder_record_probe
+    (tools/moog_latency.cu: the same record stored to a shared-memory
+    ring), in turns, by graph replay."""
+    from algodsp_tpu_torch.chain import Chain
+    from algodsp_tpu_torch.filters.moog import MoogFilter
+    from algodsp_tpu_torch.ops import moog as moog_ops
+    lib = latency_lib()
+    lib.moog_record_probe.argtypes = ([ctypes.c_void_p] * 4
+                                      + [ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_void_p])
+    chain = Chain(SR)
+    chain.load_graph(json.dumps(CHAIN_MOOG))
+    out = {}
+    for label, m, c, t, huov in [
+            ("chain block", chain.runtimes["moog"].effect, 64, 512, 1),
+            ("128x2^16 classic", MoogFilter(SR, cutoff_hz=2000.0,
+                                            resonance=0.5), 128, 1 << 16, 0)]:
+        x = torch.as_tensor(0.5 * np.random.default_rng(0).standard_normal(
+            (c, t)), dtype=torch.float32, device="cuda")
+        st = torch.zeros(8, c, device="cuda")
+        y = torch.empty_like(x)
+        so = torch.empty_like(st)
+        q = (ctypes.c_double * 6)(*m.kernel_params(), m.oversampling)
+        kw = dict(huovilainen=bool(huov), os=m.oversampling)
+        p = m.kernel_params()
+
+        def probe():
+            assert lib.moog_record_probe(
+                x.data_ptr(), st.data_ptr(), so.data_ptr(), y.data_ptr(), c,
+                t, huov, ctypes.addressof(q),
+                torch.cuda.current_stream().cuda_stream) == 0
+        probe()
+        torch.cuda.synchronize()
+        s_k, y_k = moog_ops.moog_ladder(x, st, p, **kw)
+        same = bool(torch.equal(y, y_k) and torch.equal(so, s_k))
+        reps = 20 if t <= 512 else 3
+        runs = {"K5": lambda: moog_ops.moog_ladder(x, st, p, **kw),
+                "recording K5": lambda: moog_ops.moog_ladder_record(
+                    x, st, p, **kw),
+                "record to shared (probe)": probe}
+        ms = {k: [] for k in runs}
+        for _ in range(2):
+            for k, fn in runs.items():
+                ms[k].append(graph_ms(torch, fn, reps))
+        out[label] = {"ms": ms, "probe_bit_equal_to_K5": same}
+    return out
+
+
+_LATENCY_LIB = []
+
+
+def latency_lib():
+    """tools/moog_latency.cu (with this checkout's csrc/moog.cu), built
+    once a process, loaded."""
+    if not _LATENCY_LIB:
+        from algodsp_tpu_torch import _build
+        build = os.path.join(HERE, "algodsp_tpu_torch", "_build")
+        os.makedirs(build, exist_ok=True)
+        lib_path = os.path.join(build, "libmoog_latency.so")
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                        *_build.EXTRA_FLAGS["moog"], "-o", lib_path,
+                        os.path.join(HERE, "tools", "moog_latency.cu")],
+                       check=True, timeout=600)
+        _LATENCY_LIB.append(ctypes.CDLL(lib_path))
+    return _LATENCY_LIB[0]
+
+
 def latency(torch) -> dict:
     """Build tools/moog_latency.cu (with this checkout's csrc/moog.cu) and
     return the cycles a link of each chain and the tanh errors."""
-    from algodsp_tpu_torch import _build
-    build = os.path.join(HERE, "algodsp_tpu_torch", "_build")
-    os.makedirs(build, exist_ok=True)
-    lib_path = os.path.join(build, "libmoog_latency.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                    *_build.EXTRA_FLAGS["moog"], "-o", lib_path,
-                    os.path.join(HERE, "tools", "moog_latency.cu")],
-                   check=True, timeout=600)
-    lib = ctypes.CDLL(lib_path)
+    lib = latency_lib()
     lib.moog_latency.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p]
@@ -286,6 +482,20 @@ def main() -> int:
     if args[:1] == ["--one"]:
         print("MOOG_BENCH " + json.dumps(time_root(os.path.abspath(args[1]))))
         return 0
+    if args[:1] == ["--one-adjoint"]:
+        print("MOOG_BENCH " + json.dumps(adjoint_root(os.path.abspath(
+            args[1]))))
+        return 0
+    if "--adjoint" in args:
+        return adjoint_main([a for a in args if a != "--adjoint"])
+    if "--reverse-parts" in args:
+        sys.path.insert(0, HERE)
+        import torch
+        if not torch.cuda.is_available():
+            print("moog_bench: CUDA is not available", file=sys.stderr)
+            return 1
+        reverse_parts(torch)
+        return 0
     sass_dir = None
     if "--sass" in args:
         sass_dir = os.path.abspath(args[args.index("--sass") + 1])
@@ -348,6 +558,171 @@ def main() -> int:
                       if here else "")
             print(f"chain bound {label}: {n * os_} steps x {cyc:.1f} cycles "
                   f"/ {mhz:.0f} MHz = {chain_ms:.4f} ms{kernel} ({gpu})")
+    return 0
+
+
+# the reverse ring's statements that --reverse-parts drops, and what
+# takes their place (csrc/moog.cu::reverse_ring)
+RING_RECORD_COPY = """        mbar_arrive_tx(&full[s], bytes);
+        bulk_load(dst, rec_b + start * step_elems, bytes, &full[s]);"""
+RING_GY = """        async_load(&dst[gy_at + j * (W + 1) + r],
+                   gy + static_cast<size_t>(c0 + r) * Tn + n0 + j);"""
+RING_DX = """        dx[static_cast<size_t>(c0 + r) * Tn + n0 + j] = src[j * (W + 1) + r];"""
+
+
+def reverse_parts(torch) -> None:
+    """--reverse-parts (see the module docstring)."""
+    from algodsp_tpu_torch import _build
+    from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
+    from algodsp_tpu_torch.ops import moog as moog_ops
+    gpu = card()
+    src_path = os.path.join(HERE, "algodsp_tpu_torch", "csrc", "moog.cu")
+    src = open(src_path).read()
+    variants = {
+        "whole": [],
+        "no record copy": [(RING_RECORD_COPY, "        mbar_arrive(&full[s]);")],
+        "walk alone": [(RING_RECORD_COPY, "        mbar_arrive(&full[s]);"),
+                       (RING_GY, "        (void)r, (void)j;"),
+                       (RING_DX, "        (void)r, (void)j, (void)src;")]}
+    build = os.path.join(HERE, "algodsp_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    libs, procs = {}, []
+    for i, (name, subs) in enumerate(variants.items()):
+        text = src
+        for old, new in subs:
+            assert old in text, f"csrc/moog.cu no longer has: {old}"
+            text = text.replace(old, new)
+        cu = os.path.join(build, f"moog_parts{i}.cu")
+        with open(cu, "w") as fh:
+            fh.write(text)
+        so = os.path.join(build, f"libmoog_parts{i}.so")
+        procs.append((name, so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS,
+             *_build.EXTRA_FLAGS["moog"], "-o", so, cu])))
+    for name, so, proc in procs:
+        assert proc.wait(timeout=900) == 0, name
+        lib = ctypes.CDLL(so)
+        for sym in ("moog_ladder_reverse_f32", "moog_zdf_reverse_f32"):
+            getattr(lib, sym).argtypes = moog_ops._REV_ARGTYPES
+            getattr(lib, sym).restype = ctypes.c_int
+        libs[name] = lib
+    _build.build_all(("moog",))
+    mhz = float(card("clocks.max.sm").split()[0])
+    rng = np.random.default_rng(0)
+    chain = MoogFilter(SR, variant=MoogVariant.HUOVILAINEN, oversampling=4,
+                       cutoff_hz=1200.0, resonance=2.0, drive=10 ** 0.3,
+                       normalize_output=True)
+    zdf = MoogFilter(SR, variant=MoogVariant.ZDF, cutoff_hz=1200.0,
+                     resonance=2.0, drive=2.0, newton_iters=4)
+    classic = MoogFilter(SR, cutoff_hz=2000.0, resonance=0.5)
+    classic4 = MoogFilter(SR, cutoff_hz=2000.0, resonance=0.5, oversampling=4)
+    for label, mf, c, n in [("chain block", chain, 64, 512),
+                            ("ZDF block", zdf, 64, 512),
+                            ("64x2048 classic os 1", classic, 64, 2048),
+                            ("64x512 classic os 4", classic4, 64, 512),
+                            ("128x2^14 classic os 1", classic, 128, 1 << 14)]:
+        p, os_ = mf.kernel_params(), mf.oversampling
+        x = torch.as_tensor(0.5 * rng.standard_normal((c, n)),
+                            dtype=torch.float32, device="cuda")
+        st8 = torch.zeros(8, c, device="cuda")
+        gy, gst = torch.randn(c, n, device="cuda"), torch.randn(8, c,
+                                                               device="cuda")
+        if mf.variant.value == "zdf":
+            rec = moog_ops.moog_zdf_record(x, st8, p, newton_iters=4, os=os_)[2]
+            sym, last = "moog_zdf_reverse_f32", 4
+        else:
+            huov = mf.variant.value == "huovilainen"
+            rec = moog_ops.moog_ladder_record(x, st8, p, huovilainen=huov,
+                                              os=os_)[2]
+            sym, last = "moog_ladder_reverse_f32", 2 if huov else 0
+        dx, dst = torch.empty_like(x), torch.empty_like(st8)
+        row = []
+        for name, lib in libs.items():
+            fn = getattr(lib, sym)
+            call = lambda fn=fn: fn(
+                rec.data_ptr(), st8.data_ptr(), gy.data_ptr(), gst.data_ptr(),
+                dx.data_ptr(), dst.data_ptr(), *p, c, n, last, os_,
+                torch.cuda.current_stream().cuda_stream)
+            assert call() == 0, name
+            ms = events_ms(torch, call, 10 if n * os_ <= 2048 else 3)
+            row.append(f"{name} {ms:.4f} ms ({ms * 1e3 * mhz / (n * os_):.1f}"
+                       f" cycles a step)")
+        print(f"reverse parts {label} ({n * os_} steps): " + ", ".join(row)
+              + f" (back-to-back calls; cycles at the {mhz:.0f} MHz maximum "
+              f"SM clock) ({gpu})")
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", os.path.join(build, "libmoog.so")],
+                          capture_output=True, text=True, timeout=300).stdout
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        if "moog_ladder_reverse_kernelIfLi2ELi4E" not in fn.split("\n", 1)[0]:
+            continue
+        # (address, mnemonic, branch target or None) of each instruction
+        ins = []
+        for m in re.finditer(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", fn):
+            words = m.group(2).split()
+            op = words[1] if words[0].startswith("@") else words[0]
+            tgt = re.search(r"0x([0-9a-f]+)", m.group(2)) if "BRA" in op \
+                else None
+            ins.append((int(m.group(1), 16), op,
+                        int(tgt.group(1), 16) if tgt else None))
+        # the walk: the shortest loop with a ladder step's 14 FP operations
+        best = None
+        for addr, _, tgt in ins:
+            if tgt is None or tgt >= addr:
+                continue
+            body = [op for a, op, _ in ins if tgt <= a <= addr]
+            fp = sum(op.startswith(("FFMA", "FMUL", "FADD")) for op in body)
+            if fp >= 14 and (best is None or len(body) < best[0]):
+                best = (len(body), fp, Counter(op.split(".")[0] for op in body))
+        if best:
+            print(f"reverse walk loop (moog_ladder_reverse float32, "
+                  f"Huovilainen, os 4): {best[0]} instructions, {best[1]} "
+                  f"FFMA/FMUL/FADD; "
+                  + ", ".join(f"{k} {v}" for k, v in best[2].most_common(8))
+                  + f" ({gpu})")
+
+
+def adjoint_main(args) -> int:
+    """--adjoint: each ROOT's gradient block in its own process, in the
+    order given, then the record-store probe of this checkout."""
+    roots = [os.path.abspath(a) for a in args] or [HERE]
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        print("moog_bench: CUDA is not available", file=sys.stderr)
+        return 1
+    gpu = card()
+    for root in roots:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one-adjoint", root], capture_output=True,
+                             text=True, timeout=900)
+        line = [s for s in run.stdout.splitlines()
+                if s.startswith("MOOG_BENCH ")]
+        if run.returncode or not line:
+            print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+            return 1
+        res = json.loads(line[0][len("MOOG_BENCH "):])
+        for label, v in res["shapes"].items():
+            grad = ("not captured" if v["grad_ms"] is None
+                    else f"{v['grad_ms']:.4f} ms")
+            parts = ("" if not res["recorded"] else
+                     f"; recording forward {v['record_ms']:.4f} ms, reverse "
+                     f"{v['reverse_ms']:.4f}, checkpoint adjoint "
+                     f"{v['adjoint_ms']:.4f}, record {v['record_bytes']} B")
+            print(f"moog adjoint {res['root']} {label}: gradient block {grad} "
+                  f"(graph replay; {v['grad_call_ms']:.4f} ms as back-to-back "
+                  f"calls), no-grad forward {v['forward_ms']:.4f} ms, "
+                  f"launches {json.dumps(v['launches'])}{parts} "
+                  f"(clocks.sm, max {res['clocks.sm']}) ({gpu})")
+            if "graph_error" in v:
+                print(f"  graph capture: {v['graph_error']}")
+    if HERE in roots:
+        for label, v in record_probe(torch).items():
+            print(f"moog record store {label}: "
+                  + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+                              for k, ts in v["ms"].items())
+                  + f" (graph replay, in turns); probe bit-equal to K5 "
+                  f"{v['probe_bit_equal_to_K5']} ({gpu})")
     return 0
 
 

@@ -223,6 +223,42 @@ ladder_probe(const float* __restrict__ x, const float* __restrict__ st_in,
   }
 }
 
+// moog_ladder_kernel<float, MODE, OS, true> with the record stored to a
+// shared-memory ring of PROBE_STEPS steps instead of device memory (each
+// step at its own place, and read after the walk where the compiler
+// cannot rule it out, so no store can be proven dead): what the walking
+// warp pays for a record staged through shared memory, with no flush
+// behind it
+constexpr int PROBE_STEPS = 8;   // beside tiled_walk's 33 KB, under 48 KB
+
+template <int MODE, int OS>
+__global__ void __launch_bounds__(2 * MOOG_WARP)
+ladder_record_probe(const float* __restrict__ x,
+                    const float* __restrict__ st_in,
+                    float* __restrict__ st_out, float* __restrict__ y,
+                    LadderParams<float> p, int C, long long Tn, int os) {
+  __shared__ float scratch[PROBE_STEPS * LADDER_RECORD * MOOG_WARP];
+  const int c = blockIdx.x * MOOG_WARP + threadIdx.x;
+  const bool live = threadIdx.x < MOOG_WARP && c < C;
+  p.t_hi = tanh_ds<float, MODE>(p, STATE_LIMIT);
+  p.t_lo = tanh_ds<float, MODE>(p, -STATE_LIMIT);
+  LadderState<float> st{};
+  if (live) st = ladder_state_in<float, MODE>(p, st_in, c, C);
+  float* ring = scratch + threadIdx.x % MOOG_WARP;
+  int k = 0;
+  tiled_walk(x, y, C, Tn, [&](float* row, int len) {
+    walk_row<OS>(row, len, os, p.osf, p.osc, [&](float xv) {
+      float* r = ring + k * LADDER_RECORD * MOOG_WARP;
+      k = (k + 1) % PROBE_STEPS;
+      return ladder_step<float, MODE, true>(p, xv, st, r);
+    });
+  });
+  if (live) ladder_state_out(st_out, st, c, C);
+  // a read the compiler cannot rule out (C > 0 at every call), so the
+  // ring's stores stay
+  if (C < 0) st_out[threadIdx.x] = scratch[threadIdx.x];
+}
+
 __device__ __forceinline__ unsigned ord(float v) { return __float_as_uint(v); }
 
 template <typename F>
@@ -290,6 +326,25 @@ int moog_probe(const float* x, const float* st_in, float* y,
   else
     ladder_probe<0, 1><<<grid, 2 * MOOG_WARP>>>(x, st_in, y, p, C, T, 1,
                                                 stamps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ladder_record_probe over x (C, T): Huovilainen at os 4 (huov) or
+// classic at os 1, q = [coef, ds, fb, ig, osc, os], on `stream`
+int moog_record_probe(const float* x, const float* st_in, float* st_out,
+                      float* y, int C, long long T, int huov,
+                      const double* q, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const LadderParams<float> p{float(q[0]), float(q[1]),
+                              float(LOG2E_X2 * q[1]), float(q[2]),
+                              float(q[3]), float(q[4]), float(q[5]), 0.0f, 0.0f};
+  const dim3 grid((C + MOOG_WARP - 1) / MOOG_WARP);
+  if (huov)
+    ladder_record_probe<2, 4><<<grid, 2 * MOOG_WARP, 0, s>>>(
+        x, st_in, st_out, y, p, C, T, 4);
+  else
+    ladder_record_probe<0, 1><<<grid, 2 * MOOG_WARP, 0, s>>>(
+        x, st_in, st_out, y, p, C, T, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
