@@ -15,6 +15,7 @@ silent.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -154,6 +155,13 @@ def refuse_grad(what: str, missing: str, *tensors) -> None:
         raise NotImplementedError(
             f"{what}: no backward on the card: {missing}; call it under "
             f"torch.no_grad(), on detached tensors, or on the CPU")
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device) -> int:
+    """The SM count of CUDA `device`, read once per device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> ctypes.c_void_p:

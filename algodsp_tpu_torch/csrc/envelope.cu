@@ -42,7 +42,10 @@
 // sweeps one solve took. A segment's end state seeds the next segment.
 // A segment of at most ENV_MIN_CHUNK samples is one chunk: the walk.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 #define ENV_SMEM_BYTES 196608
 #define ENV_MAX_THREADS 1024
@@ -304,29 +307,62 @@ static int launch(const T* x, const T* env0, const T* attack, const T* release,
 //
 // What bounds it on the H100: the bytes. It reads x, the trajectory and G
 // and writes dx, 16 bytes a float32 sample (32 in float64), against about
-// eight operations a sample; at the flagship's 8 x 48128 that is ~1.8 us
+// nine operations a sample; at the flagship's 8 x 48128 that is ~1.8 us
 // at 3.35 TB/s. A reverse walk of a channel is a chain of T dependent
-// steps, which is what the design splits.
+// steps, which is what the design splits; and eight channels fill 8 SMs
+// of 132 unless a channel is spread over several.
 //
-// Design: one block per channel, one chunk of L samples per thread, the
-// threads in reverse time order (thread 0 owns the last chunk):
+// Design (plan: ops/envscan.py::adjoint_plan). Where 2 C <= SMs a
+// channel's time is split into B parts (B <= 8), one block each, run as a
+// thread-block cluster; otherwise B = 1. A part is walked in segments of
+// at most ENV_SMEM_BYTES: each segment's x, env_prev (the trajectory
+// staged from one sample earlier, env0 in front of sample 0) and G are
+// staged into shared memory by coalesced 16-byte cp.async.cg copies (each
+// array shifted in shared memory to its source's alignment; the elements
+// outside whole 16-byte units go one at a time), so each is read once.
+// In a segment each thread owns a chunk of L samples (L odd: distinct
+// banks), the threads in reverse time order (thread 0 owns the last
+// chunk):
 //   1. each thread composes its chunk's map carry_out = A carry_in + W
-//      walking backward (float64);
-//   2. the block's exclusive scan of the maps (the forward's
-//      exclusive_affine_scan, in thread order, so over the later chunks)
-//      gives each chunk its entering carry from g_final;
-//   3. each thread walks its chunk again from that carry in the working
-//      type, as the plain scan does, writing dx = a s and adding s delta
-//      into its attack or release sum (float64); the chunk holding sample
-//      0 writes denv0.
+//      walking backward (float64); the block's exclusive scan of the
+//      maps (the forward's exclusive_affine_scan, in thread order, so
+//      over the later chunks) gives each chunk the map from the carry
+//      entering the segment;
+//   2. in a cluster each block first composes its whole part's map from
+//      its segments' (first to last, float64), publishes it in shared
+//      memory, and after one cluster barrier forms the carry entering
+//      its part from g_final by the later parts' maps, read through
+//      distributed shared memory in rank order from the last (time runs
+//      backward: the block holding the last samples starts from
+//      g_final). The segment scanned last is still staged, and its
+//      chunk maps still in registers, for the walk below;
+//   3. the segments are walked last to first: each chunk from its
+//      entering carry in the working type, as the plain scan does,
+//      writing dx = a s into G's place in shared memory (stored
+//      coalesced) and adding s delta into its attack or release sum
+//      (float64); the segment's first chunk's end carry enters the
+//      segment before it; the chunk holding sample 0 gives denv0.
+// A part that fits one segment (the flagship's: 6016 samples, 72 KB) is
+// read once; a longer one re-stages all but its last segment for the
+// walk. With B = 1 nothing is composed ahead: the part's carry is g_final.
 // The carry is formed as s - a s (one FMA), not (1 - a) s: for a
 // coefficient near 0 (a compressor's release, ~1.4e-4) 1 - a in float32
 // keeps only a few bits of a, an error the scan multiplies over ~1/a
 // steps (85 dB against float64 at the compressor's ballistics). The two
-// sums are reduced per block in a fixed order (warps by xor shuffles,
-// then thread 0 over the warp sums in warp order), so a run repeats bit
-// for bit. Chunks read device memory directly (no staging):
-// this first design is simple and right, not yet fast.
+// sums are reduced in a fixed order: warps by xor shuffles, then thread 0
+// over the warp sums in warp order, then rank 0 over the cluster's
+// blocks in rank order through distributed shared memory; so a run
+// repeats bit for bit.
+
+#define ENV_ADJ_MAX_CLUSTER 8
+#define ENV_VEC(T) (16 / (int)sizeof(T))
+
+// Elements of each shared array of a segment of seg: room for its
+// alignment shift, a whole number of 16-byte units.
+template <typename T>
+__host__ __device__ __forceinline__ long long adjoint_stride(long long seg) {
+  return (seg + ENV_VEC(T) - 1) / ENV_VEC(T) * ENV_VEC(T) + ENV_VEC(T);
+}
 
 // Sum of v over the block in a fixed order; the result is valid in
 // thread 0. s: 32 doubles of shared memory.
@@ -344,72 +380,265 @@ __device__ __forceinline__ double block_sum(double v, double* s) {
   return t;
 }
 
+// One element of src into shared memory by cp.async.
+template <typename T>
+__device__ __forceinline__ void copy_one(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+}
+
+// Coalesced asynchronous copy of src[0, len) into shared memory at
+// region + shift + lead, shift in [0, ENV_VEC) chosen so that the copy's
+// destination has src's alignment modulo 16 bytes: the elements before
+// src's first 16-byte boundary and after its last go one a thread, the
+// rest by 16-byte cp.async.cg, one a thread and step. region is 16-byte
+// aligned and holds lead + len + ENV_VEC - 1 elements. Returns
+// region + shift; completes at cp.async.wait_all.
+template <typename T>
+__device__ __forceinline__ T* copy_async(T* region, const T* __restrict__ src,
+                                         int len, int lead) {
+  constexpr int V = ENV_VEC(T);
+  const int h = (int)(((size_t)src / sizeof(T)) % V);
+  T* dst = region + (h - lead + 2 * V) % V;
+  T* d = dst + lead;
+  const int head = min(len, (V - h) % V);
+  const int body = (len - head) / V;
+  const int tail = len - head - body * V;
+  const int tid = threadIdx.x;
+  if (tid < head) copy_one(d + tid, src + tid);
+  const int rest = head + body * V;
+  if (tid < tail) copy_one(d + rest + tid, src + rest + tid);
+  for (int i = tid; i < body; i += blockDim.x) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(d + head + i * V);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src + head + i * V));
+  }
+  return dst;
+}
+
+// x, traj, g, dx: (C, n). Block rank of a channel's B holds samples
+// [rank part, (rank + 1) part), part = ceil(n / B), in segments of seg;
+// each of its three shared arrays holds adjoint_stride(seg) elements.
 template <typename T>
 __global__ void __launch_bounds__(ENV_MAX_THREADS) envelope_adjoint_kernel(
     const T* __restrict__ x, const T* __restrict__ traj,
     const T* __restrict__ env0, const T* __restrict__ attack,
     const T* __restrict__ release, const T* __restrict__ g,
     const T* __restrict__ g_final, T* __restrict__ dx, T* __restrict__ denv0,
-    T* __restrict__ datt, T* __restrict__ drel, long long n, long long L) {
+    T* __restrict__ datt, T* __restrict__ drel, long long n, int seg, int L,
+    int B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const x_region = reinterpret_cast<T*>(smem_raw);
+  T* const p_region = x_region + adjoint_stride<T>(seg);
+  T* const g_region = p_region + adjoint_stride<T>(seg);
+  T *xs = x_region, *ps = p_region, *gs = g_region;  // x, env_prev, G then dx
   __shared__ double sA[32], sW[32], s_att[32], s_rel[32];
-  const int c = blockIdx.x, tid = threadIdx.x;
+  __shared__ double s_seg[2];   // a segment's map
+  __shared__ double s_part[2];  // the part's, read by the cluster
+  __shared__ double s_sums[2];  // the block's attack and release sums
+  __shared__ double s_carry;
+  __shared__ T s_end;
+  const int rank = blockIdx.x % B, c = blockIdx.x / B, tid = threadIdx.x;
   const size_t off = (size_t)c * n;
-  const T* xc = x + off;
-  const T* tc = traj + off;
-  const T* gc = g + off;
-  T* dc = dx + off;
-  const T a = attack[c], r = release[c], e0 = env0[c];
-  const long long nchunks = (n + L - 1) / L;
-  const long long chunk = nchunks - 1 - tid;       // < 0: no chunk
-  const long long start = chunk >= 0 ? chunk * L : 0;
-  const long long end = chunk >= 0 ? min(start + L, n) : 0;
+  const long long part = (n + B - 1) / B, pbase = rank * part;
+  const long long plen = min(part, n - pbase);
+  const int nseg = (int)((plen + seg - 1) / seg);
+  const T a = attack[c], r = release[c];
+  const double ad = a, rd = r;
 
-  double A = 1.0, W = 0.0;
-  for (long long i = end - 1; i >= start; --i) {
-    const T xv = xc[i], ep = i > 0 ? tc[i - 1] : e0;
-    const double coef = (double)(xv > ep ? a : r);
-    const double s = (double)gc[i] + W;
-    W = s - coef * s;
-    A *= 1.0 - coef;
+  // stage segment j of the part; returns its length
+  auto stage = [&](int j) -> int {
+    const long long base = pbase + (long long)j * seg;
+    const int len = (int)min((long long)seg, plen - (long long)j * seg);
+    xs = copy_async(x_region, x + off + base, len, 0);
+    gs = copy_async(g_region, g + off + base, len, 0);
+    if (base == 0) {
+      ps = copy_async(p_region, traj + off, len - 1, 1);
+      if (tid == 0) ps[0] = env0[c];
+    } else {
+      ps = copy_async(p_region, traj + off + base - 1, len, 0);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    return len;
+  };
+  // this thread's chunk [start, end) of a segment of len samples, and
+  // whether it is the segment's first
+  int start = 0, end = 0;
+  bool first = false;
+  auto chunk_of = [&](int len) {
+    const int nchunks = (len + L - 1) / L, chunk = nchunks - 1 - tid;
+    start = chunk >= 0 ? chunk * L : 0;
+    end = chunk >= 0 ? min(start + L, len) : 0;
+    first = chunk == 0;
+  };
+  // the chunk's map, and (cA, cW) the map from the carry entering the
+  // segment to the one entering the chunk; the first chunk's owner puts
+  // the segment's map in s_seg
+  double cA = 1.0, cW = 0.0;
+  auto scan = [&]() {
+    double A = 1.0, W = 0.0;
+    for (int i = end - 1; i >= start; --i) {
+      const double coef = xs[i] > ps[i] ? ad : rd;
+      const double s = (double)gs[i] + W;
+      W = s - coef * s;
+      A *= 1.0 - coef;
+    }
+    cA = A;
+    cW = W;
+    exclusive_affine_scan(cA, cW, sA, sW);
+    if (first) {
+      s_seg[0] = A * cA;
+      s_seg[1] = A * cW + W;
+    }
+  };
+
+  // 1-2: in a cluster, the carry entering the part (the map of every
+  // segment composed, first to last)
+  double carry_in = (double)g_final[c];
+  int resident = -1;
+  if (B > 1) {
+    double PA = 1.0, PW = 0.0;
+    for (int j = 0; j < nseg; ++j) {
+      if (j > 0) __syncthreads();  // the last segment's readers are done
+      chunk_of(stage(j));
+      scan();
+      __syncthreads();
+      PW = PA * s_seg[1] + PW;
+      PA = PA * s_seg[0];
+    }
+    resident = nseg - 1;
+    if (tid == 0) {
+      s_part[0] = PA;
+      s_part[1] = PW;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (tid == 0) {
+      double v = carry_in;
+      for (int q = B - 1; q > rank; --q) {
+        const double* m = cluster.map_shared_rank(s_part, q);
+        v = m[0] * v + m[1];
+      }
+      s_carry = v;
+    }
+    __syncthreads();
+    carry_in = s_carry;
   }
-  exclusive_affine_scan(A, W, sA, sW);
-  T carry = (T)(A * (double)g_final[c] + W);
 
+  // 3: walk the segments last to first
   double sum_att = 0.0, sum_rel = 0.0;
-  for (long long i = end - 1; i >= start; --i) {
-    const T xv = xc[i], ep = i > 0 ? tc[i - 1] : e0;
-    const bool up = xv > ep;
-    const T coef = up ? a : r;
-    const T s = gc[i] + carry;
-    dc[i] = coef * s;
-    const double sd = (double)(s * (xv - ep));
-    if (up)
-      sum_att += sd;
-    else
-      sum_rel += sd;
-    carry = s - coef * s;
+  for (int j = nseg - 1; j >= 0; --j) {
+    const long long base = pbase + (long long)j * seg;
+    int len;
+    if (j == resident) {
+      len = (int)min((long long)seg, plen - (long long)j * seg);
+    } else {
+      len = stage(j);
+      chunk_of(len);
+      scan();
+    }
+    T carry = (T)(cA * carry_in + cW);
+    for (int i = end - 1; i >= start; --i) {
+      const T xv = xs[i], ep = ps[i];
+      const bool up = xv > ep;
+      const T coef = up ? a : r;
+      const T s = gs[i] + carry;
+      gs[i] = coef * s;
+      const double sd = (double)(s * (xv - ep));
+      if (up)
+        sum_att += sd;
+      else
+        sum_rel += sd;
+      carry = s - coef * s;
+    }
+    if (first) s_end = carry;
+    __syncthreads();
+    for (int i = tid; i < len; i += blockDim.x) dx[off + base + i] = gs[i];
+    carry_in = (double)s_end;
+    __syncthreads();
   }
-  if (chunk == 0) denv0[c] = carry;
   sum_att = block_sum(sum_att, s_att);
   sum_rel = block_sum(sum_rel, s_rel);
-  if (tid == 0) {
-    datt[c] = (T)sum_att;
-    drel[c] = (T)sum_rel;
+  if (B == 1) {
+    if (tid == 0) {
+      datt[c] = (T)sum_att;
+      drel[c] = (T)sum_rel;
+      denv0[c] = s_end;
+    }
+    return;
   }
+  if (tid == 0) {
+    s_sums[0] = sum_att;
+    s_sums[1] = sum_rel;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (rank == 0 && tid == 0) {
+    double ta = 0.0, tr = 0.0;
+    for (int q = 0; q < B; ++q) {
+      const double* s = cluster.map_shared_rank(s_sums, q);
+      ta += s[0];
+      tr += s[1];
+    }
+    datt[c] = (T)ta;
+    drel[c] = (T)tr;
+    denv0[c] = s_end;
+  }
+  // no block leaves while rank 0 reads its shared memory
+  cluster.sync();
 }
 
 template <typename T>
 static int launch_adjoint(const T* x, const T* traj, const T* env0,
                           const T* attack, const T* release, const T* g,
                           const T* g_final, T* dx, T* denv0, T* datt, T* drel,
-                          int C, long long n, long long L, int threads,
-                          void* stream) {
-  if (C < 1 || n < 1 || L < 1 || threads < 32 || threads > ENV_MAX_THREADS ||
-      threads % 32 || (long long)threads * L < n)
+                          int C, long long n, int seg, int L, int threads,
+                          int B, void* stream) {
+  const long long smem = 3ll * adjoint_stride<T>(seg) * (long long)sizeof(T);
+  if (C < 1 || n < 1 || B < 1 || B > ENV_ADJ_MAX_CLUSTER ||
+      (long long)C * B > 0x7fffffffll)
     return static_cast<int>(cudaErrorInvalidValue);
-  envelope_adjoint_kernel<T><<<C, threads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      x, traj, env0, attack, release, g, g_final, dx, denv0, datt, drel, n, L);
+  const long long part = (n + B - 1) / B;
+  if ((long long)(B - 1) * part >= n || seg < 1 || seg > part || L < 1 ||
+      smem > ENV_SMEM_BYTES || threads < 32 ||
+      threads > ENV_MAX_THREADS || threads % 32 ||
+      (long long)threads * L < seg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // opt in to the largest segment once per device, so that later calls
+  // (and a CUDA graph capturing them) make no attribute call
+  static int opted_in[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(envelope_adjoint_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               ENV_SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) opted_in[dev] = 1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C * B));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)B;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = B > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, envelope_adjoint_kernel<T>, x, traj, env0,
+                           attack, release, g, g_final, dx, denv0, datt, drel,
+                           n, seg, L, B);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -440,15 +669,18 @@ int envelope_scan_f64(const double* x, const double* env0,
 }
 
 // x, traj, g, dx: (C, n); env0, attack, release, g_final, denv0, datt,
-// drel: (C,). L and threads come from ops/envscan.py::adjoint_plan.
-// Returns cudaGetLastError() after the launch.
+// drel: (C,). seg, L, threads and the cluster size B come from
+// ops/envscan.py::adjoint_plan. Returns cudaGetLastError() after the
+// launch.
 int envelope_adjoint_f32(const float* x, const float* traj, const float* env0,
                          const float* attack, const float* release,
                          const float* g, const float* g_final, float* dx,
                          float* denv0, float* datt, float* drel, int C,
-                         long long n, long long L, int threads, void* stream) {
+                         long long n, int seg, int L, int threads, int B,
+                         void* stream) {
   return launch_adjoint<float>(x, traj, env0, attack, release, g, g_final, dx,
-                               denv0, datt, drel, C, n, L, threads, stream);
+                               denv0, datt, drel, C, n, seg, L, threads, B,
+                               stream);
 }
 
 int envelope_adjoint_f64(const double* x, const double* traj,
@@ -456,9 +688,10 @@ int envelope_adjoint_f64(const double* x, const double* traj,
                          const double* release, const double* g,
                          const double* g_final, double* dx, double* denv0,
                          double* datt, double* drel, int C, long long n,
-                         long long L, int threads, void* stream) {
+                         int seg, int L, int threads, int B, void* stream) {
   return launch_adjoint<double>(x, traj, env0, attack, release, g, g_final, dx,
-                                denv0, datt, drel, C, n, L, threads, stream);
+                                denv0, datt, drel, C, n, seg, L, threads, B,
+                                stream);
 }
 
 }  // extern "C"

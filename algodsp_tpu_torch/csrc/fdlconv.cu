@@ -423,36 +423,165 @@ __global__ void __launch_bounds__(FFT_MAX_THREADS) fdl_inverse(const float2* __r
 // read by no inverse transform, so they get no gradient (0).
 //
 // What bounds it on the H100: per (p, k) it runs C (nf - p) complex
-// multiply-adds, ~8 C nf P (B+1) operations in all, against the bytes of
-// X and dV (16 C nf (B+1)) and dH (8 P (B+1)); at IR learning's 8 x 47
-// frames of B = 1024 and P = 32 that is ~0.1 GFLOP: operation-bound.
-// Design: one thread per (p, k) walking (c, f), neighbouring threads on
-// neighbouring bins so that every load is coalesced; the sum is float64 in
-// the order (c, f), so it does not depend on the launch. Each spectrum is
-// read P times (from L2 at the training shapes): simple and right first.
-__global__ void fdl_spectra_adjoint_kernel(const float2* __restrict__ X,
-                                           const float2* __restrict__ dV,
-                                           float2* __restrict__ dH, int C,
-                                           int nf, int B) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
+// multiply-adds, four float64 FMAs each, against the bytes of X and dV
+// (16 C nf (B+1)) and dH (8 P (B+1)). The sums are float64, so the
+// operation bound is the FP64 rate (34 TFLOP/s outside the tensor cores),
+// not the float32 67: at IR learning's 8 x 47 frames of B = 1024 and
+// P = 32, ~66 MFLOP take ~0.0020 ms against ~0.0019 by bytes. What holds
+// this design above that (tools/adjoint_bench.py --parts, PERF.md) is its
+// data path, the copies into the ring and the ring's reads, and the walk
+// itself: each thread's C (nf - p0) steps add into the same sums in the
+// (c, f) order, one step after another, each converting its two float32
+// inputs to float64.
+//
+// Design (plan: ops/fdlconv.py::spectra_adjoint_plan): a block per (bin
+// slice of SPEC_ADJ_THREADS bins, group of G lags p0 .. p0+G-1), one
+// thread per bin, neighbouring threads on neighbouring bins so that
+// every load is coalesced. A thread holds the G lags' sums and a window
+// of the G most recent X[c, m] (converted to float64) in registers and
+// walks (c, f) once: each step brings one new X and one dV, converts
+// them, and does G complex multiply-adds, so a frame spectrum is read
+// ceil(P / G) times, not P times. The loads run D - 1 groups of G steps
+// ahead of the arithmetic (SpecAdjStages), by cp.async into a ring of D
+// groups in shared memory that each thread fills and reads for its own
+// bin (no barrier). A group inside its channel runs as straight-line
+// code; a channel's first group (lag j starts at step j) and its last
+// take the predicated path. Each lag's sum takes its terms in the order
+// c, then f ascending, each as four FMAs (real: + dVr Xr, + dVi Xi;
+// imaginary: + dVi Xr, - dVr Xi), whose products of float32 values are
+// exact in float64: one rounding per FMA, in an order that depends
+// neither on G nor on the launch shape.
+
+#define SPEC_ADJ_THREADS 64
+
+// groups of G steps in flight per thread, 40-45 KB of ring a block:
+// enough to cover a load's latency with the arithmetic of the groups
+// before it (tools/adjoint_bench.py --tune)
+template <int G>
+struct SpecAdjStages {
+  static constexpr int value = G >= 8 ? 5 : (G >= 4 ? 11 : (G >= 2 ? 20 : 40));
+};
+
+template <int G>
+__global__ void __launch_bounds__(SPEC_ADJ_THREADS) fdl_spectra_adjoint_kernel(
+    const float2* __restrict__ X, const float2* __restrict__ dV,
+    float2* __restrict__ dH, int C, int nf, int B, int P) {
+  constexpr int D = SpecAdjStages<G>::value;
+  constexpr unsigned kRow = SPEC_ADJ_THREADS * sizeof(float2);
+  // each thread's own ring of D groups (G X, then G dV)
+  __shared__ float2 ring[D][2 * G][SPEC_ADJ_THREADS];
+  const int t = threadIdx.x, k = blockIdx.x * blockDim.x + t;
   if (k > B) return;
+  const int p0 = blockIdx.y * G;
   const size_t stride = (size_t)B + 1;
-  double re = 0.0, im = 0.0;
-  for (int c = 0; c < C && p < nf; ++c) {
-    const float2* Vc = dV + (size_t)c * nf * stride + k;
-    const float2* Xc = X + (size_t)c * nf * stride + k;
-    for (int f = p; f < nf; ++f) {
-      const float2 v = __ldg(Vc + (size_t)f * stride);
-      const float2 x = __ldg(Xc + (size_t)(f - p) * stride);
-      re += (double)v.x * x.x + (double)v.y * x.y;
-      im += (double)v.y * x.x - (double)v.x * x.y;
+  const unsigned ring_at = (unsigned)__cvta_generic_to_shared(&ring[0][0][t]);
+  double re[G], im[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) re[j] = im[j] = 0.0;
+  // steps u = f - p0 in [0, nf - p0) of each channel, in groups of G
+  // (the last one padded): X[c, u] enters the window's slot u mod G and
+  // lag j reads X[c, u - j] from slot (u - j) mod G
+  const int steps = nf - p0;
+  int fc = steps > 0 ? 0 : C, fu = 0;  // the next group to copy
+  auto issue = [&](int slot) {
+    if (fc < C) {
+      const float2* xg = X + ((size_t)fc * nf + fu) * stride + k;
+      const float2* vg = dV + ((size_t)fc * nf + p0 + fu) * stride + k;
+      const unsigned at = ring_at + (unsigned)slot * 2 * G * kRow;
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+        if (fu + q < steps) {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                           at + q * kRow),
+                       "l"(xg + (size_t)q * stride)
+                       : "memory");
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                           at + (G + q) * kRow),
+                       "l"(vg + (size_t)q * stride)
+                       : "memory");
+        }
+      fu += G;
+      if (fu >= steps) {
+        fu = 0;
+        ++fc;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int s = 0; s < D - 1; ++s) issue(s);
+  double wr[G], wi[G];
+  int slot = 0;
+  for (int c = 0; c < C && steps > 0; ++c) {
+    for (int u0 = 0; u0 < steps; u0 += G) {
+      issue(slot == 0 ? D - 1 : slot - 1);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(D - 1) : "memory");
+      // the group's inputs, converted before any arithmetic (a step past
+      // the channel's end reads a stale slot and is not used)
+      double xr[G], xi[G], vr[G], vi[G];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float2 xv = ring[slot][q][t], dv = ring[slot][G + q][t];
+        xr[q] = (double)xv.x;
+        xi[q] = (double)xv.y;
+        vr[q] = (double)dv.x;
+        vi[q] = (double)dv.y;
+      }
+      slot = slot + 1 == D ? 0 : slot + 1;
+      if (u0 > 0 && u0 + G <= steps) {
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          wr[q] = xr[q];
+          wi[q] = xi[q];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const int s = (q - j + G) % G;
+            re[j] = __fma_rn(vr[q], wr[s], re[j]);
+            re[j] = __fma_rn(vi[q], wi[s], re[j]);
+            im[j] = __fma_rn(vi[q], wr[s], im[j]);
+            im[j] = __fma_rn(-vr[q], wi[s], im[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          if (u0 + q >= steps) break;
+          wr[q] = xr[q];
+          wi[q] = xi[q];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            if (u0 == 0 && q < j) continue;
+            const int s = (q - j + G) % G;
+            re[j] = __fma_rn(vr[q], wr[s], re[j]);
+            re[j] = __fma_rn(vi[q], wi[s], re[j]);
+            im[j] = __fma_rn(vi[q], wr[s], im[j]);
+            im[j] = __fma_rn(-vr[q], wi[s], im[j]);
+          }
+        }
+      }
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   const bool edge = k == 0 || k == B;
   const double w = (edge ? 1.0 : 2.0) / (2.0 * B);
-  dH[(size_t)p * stride + k] =
-      make_float2((float)(re * w), edge ? 0.0f : (float)(im * w));
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    if (p0 + j < P)
+      dH[(size_t)(p0 + j) * stride + k] =
+          make_float2((float)(re[j] * w), edge ? 0.0f : (float)(im[j] * w));
+}
+
+typedef void (*SpecAdjKernel)(const float2*, const float2*, float2*, int, int,
+                              int, int);
+
+static SpecAdjKernel spectra_adjoint_kernel(int G) {
+  switch (G) {
+    case 1: return fdl_spectra_adjoint_kernel<1>;
+    case 2: return fdl_spectra_adjoint_kernel<2>;
+    case 4: return fdl_spectra_adjoint_kernel<4>;
+    case 8: return fdl_spectra_adjoint_kernel<8>;
+    default: return nullptr;
+  }
 }
 
 typedef void (*MacKernel)(const float2*, const float2*, float2*, int, int, int);
@@ -536,18 +665,19 @@ int fdl_conv_f32(const float* x, const float* H, const float* tw, float* X,
 }
 
 // X, dV: (C, nf, B+1) complex; dH: (P, B+1) complex, written whole. B in
-// [2, 8192]. Returns cudaGetLastError() after the launch.
+// [2, 8192]; G lags a thread, from ops/fdlconv.py::spectra_adjoint_plan.
+// Returns cudaGetLastError() after the launch.
 int fdl_spectra_adjoint_f32(const float* X, const float* dV, float* dH, int C,
-                            int nf, int B, int P, void* stream) {
+                            int nf, int B, int P, int G, void* stream) {
   if (C < 1 || C > 65535 || nf < 1 || B < 2 || B > MAX_BLOCK || P < 1 ||
-      P > 65535)
+      P > 65535 || !spectra_adjoint_kernel(G))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)((B + 1 + MAC_THREADS - 1) / MAC_THREADS),
-                  (unsigned)P);
-  fdl_spectra_adjoint_kernel<<<grid, MAC_THREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((unsigned)((B + 1 + SPEC_ADJ_THREADS - 1) / SPEC_ADJ_THREADS),
+                  (unsigned)((P + G - 1) / G));
+  spectra_adjoint_kernel(G)<<<grid, SPEC_ADJ_THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(X), reinterpret_cast<const float2*>(dV),
-      reinterpret_cast<float2*>(dH), C, nf, B);
+      reinterpret_cast<float2*>(dH), C, nf, B, P);
   return static_cast<int>(cudaGetLastError());
 }
 

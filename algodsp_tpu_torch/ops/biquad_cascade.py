@@ -104,12 +104,6 @@ def _device_tables(sos_key: bytes, s: int, length: int, seg: int,
     return torch.as_tensor(section_tables(sos, length, seg)).to(device)
 
 
-@lru_cache(maxsize=16)
-def _sm_count(device: str) -> int:
-    props = torch.cuda.get_device_properties(torch.device(device))
-    return props.multi_processor_count
-
-
 def biquad_cascade_plain(x, sos, gain: float = 1.0, state=None):
     """Plain PyTorch cascade on the blocked engine: (y, new_state)."""
     sos = np.asarray(sos, dtype=np.float64).reshape(-1, 5)
@@ -185,7 +179,7 @@ def _cascade(x, sos, gain: float, state):
             raise ValueError("biquad_cascade: state must be a contiguous "
                              f"float32 ({c}, {s}, 4) tensor on {x.device}")
     seg, length, threads, blocks = segment_plan(n, c,
-                                                _sm_count(str(x.device)))
+                                                _build.sm_count(x.device))
     tab = _device_tables(np.ascontiguousarray(sos).tobytes(), s, length, seg,
                          str(x.device))
     y = torch.empty_like(x)

@@ -16,8 +16,9 @@ block's chunks in place of shards). It replaces the Pallas kernel
 `EnvelopeFn`, the port of the reference's custom VJP `_envelope_bwd`:
 its backward is the reverse-time scan of the adjoint, the CUDA kernel
 `envelope_adjoint` of the same source on the card (float32 and
-float64) and `envelope_adjoint_plain` on the CPU, with the selection
-read from the forward's own trajectory.
+float64; a channel spread over a cluster of blocks where the channels
+leave SMs idle, `adjoint_plan`) and `envelope_adjoint_plain` on the
+CPU, with the selection read from the forward's own trajectory.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ ENV_SMEM_BYTES = 196608    # a segment of x staged in shared memory
 ENV_MAX_THREADS = 1024     # one block per channel, one chunk per thread
 ENV_MIN_CHUNK = 15         # shorter chunks only add sweeps
 ENV_MAX_SWEEPS = 32        # then the block walks the segment exactly
+ADJ_MAX_CLUSTER = 8        # blocks per channel (ENV_ADJ_MAX_CLUSTER)
+ADJ_MIN_PART = 2048        # samples per block below which a cluster costs more
 
 # envelope_scan_f{32,64}(x, env0, attack, release, traj, env_final, C, n,
 #                        seg, L, threads, max_sweeps, counts, stream)
@@ -40,10 +43,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
 _SYMBOLS = {torch.float32: "envelope_scan_f32",
             torch.float64: "envelope_scan_f64"}
 # envelope_adjoint_f{32,64}(x, traj, env0, attack, release, g, g_final, dx,
-#                           denv0, datt, drel, C, n, L, threads, stream)
-_ADJ_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p])
+#                           denv0, datt, drel, C, n, seg, L, threads, B,
+#                           stream)
+_ADJ_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_longlong]
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _ADJ_SYMBOLS = {torch.float32: "envelope_adjoint_f32",
                 torch.float64: "envelope_adjoint_f64"}
 
@@ -81,13 +84,32 @@ def envelope_scan_plain(targets, env0, attack, release):
     return env, out
 
 
-def adjoint_plan(t: int) -> tuple[int, int]:
-    """The adjoint kernel's split of a T-sample channel: (chunk length L,
-    threads). One chunk a thread, at most ENV_MAX_THREADS of them, each
-    at least ENV_MIN_CHUNK samples long."""
-    length = max(ENV_MIN_CHUNK, -(-t // ENV_MAX_THREADS))
-    chunks = -(-t // length)
-    return length, 32 * -(-chunks // 32)
+def adjoint_plan(t: int, channels: int, sms: int,
+                 itemsize: int) -> tuple[int, int, int, int]:
+    """The adjoint kernel's split of `channels` channels of t samples
+    of `itemsize` bytes on a card of `sms` SMs: (segment, chunk length L,
+    threads, blocks per channel B).
+
+    Where 2 * channels <= sms, a channel's time runs on a cluster of B
+    blocks (at most ADJ_MAX_CLUSTER, each at least ADJ_MIN_PART
+    samples), block b holding the part [b * part, (b + 1) * part),
+    part = ceil(t / B); otherwise B = 1. A block walks its part in
+    segments of equal length, each at most ENV_SMEM_BYTES of x,
+    env_prev and the cotangent with 16 bytes of slack an array (the
+    kernel shifts each to its source's 16-byte alignment); each thread owns L consecutive samples
+    of a segment, L odd (distinct shared-memory banks), at least
+    ENV_MIN_CHUNK, and enough for at most ENV_MAX_THREADS chunks."""
+    blocks = 1
+    if 2 * channels <= sms:
+        blocks = max(1, min(ADJ_MAX_CLUSTER, sms // channels,
+                            t // ADJ_MIN_PART))
+    part = -(-t // blocks)
+    vec = 16 // itemsize
+    cap = ENV_SMEM_BYTES // (3 * itemsize) - vec
+    seg = -(-part // -(-part // cap))
+    length = max(ENV_MIN_CHUNK, -(-seg // ENV_MAX_THREADS)) | 1
+    chunks = -(-seg // length)
+    return seg, length, 32 * -(-chunks // 32), blocks
 
 
 def envelope_adjoint_plain(targets, traj, env0, attack, release, g, g_final):
@@ -146,13 +168,15 @@ def envelope_adjoint(targets, traj, env0, attack, release, g, g_final):
             raise ValueError(f"envelope_adjoint: {name} must be a contiguous "
                              f"{targets.dtype} {shape} tensor on "
                              f"{targets.device}")
-    length, threads = adjoint_plan(t)
+    seg, length, threads, blocks = adjoint_plan(
+        t, c, _build.sm_count(targets.device), targets.element_size())
     dx = torch.empty_like(targets)
     denv0, datt, drel = (torch.empty_like(env0) for _ in range(3))
     with torch.cuda.device(targets.device):
         code = fn(*(_build.ptr(v) for v in (
             targets, traj, env0, attack, release, g, g_final, dx, denv0, datt,
-            drel)), c, t, length, threads, _build.stream_of(targets))
+            drel)), c, t, seg, length, threads, blocks,
+            _build.stream_of(targets))
         envelope_adjoint.launches += 1
     _build.check("envelope", code, "envelope_adjoint")
     return dx, denv0, datt, drel

@@ -37,11 +37,13 @@ MAX_BLOCK = 8192        # the largest partition the kernel takes
 FFT_RADIX = 16          # points a thread holds in registers
 FFT_BLOCK_THREADS = 256  # threads of an FFT block, unless one FFT needs more
 MAC_THREADS = 128       # bins of one MAC block
+SPEC_ADJ_THREADS = 64   # bins of one spectra-adjoint block
+SPEC_ADJ_MAX_G = 8      # lags a spectra-adjoint thread holds
 SMS = 132               # H100 SXM streaming multiprocessors
 # fdl_conv_f32(x, H, tw, X, Y, y, C, N, B, P, n16, rem, T, fpb, G, stream)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# fdl_spectra_adjoint_f32(X, dV, dH, C, nf, B, P, stream)
-_ADJ_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# fdl_spectra_adjoint_f32(X, dV, dH, C, nf, B, P, G, stream)
+_ADJ_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def kernel_spectra(kernel, B: int) -> np.ndarray:
@@ -130,7 +132,8 @@ def fdl_spectra_adjoint_plain(X, dV, P: int):
 def fdl_spectra_adjoint(X, dV, P: int):
     """The spectra adjoint (`fdl_spectra_adjoint_plain`'s function) of
     X, dV (C, nf, B+1, 2): CUDA tensors run the kernel (float32,
-    contiguous), CPU tensors the plain version."""
+    contiguous; G lags a thread from `spectra_adjoint_plan`), CPU
+    tensors the plain version."""
     if X.ndim != 4 or X.shape[-1] != 2 or dV.shape != X.shape:
         raise ValueError("fdl_spectra_adjoint: X and dV must be (C, nf, B+1, "
                          f"2) alike, got {tuple(X.shape)} and "
@@ -139,7 +142,6 @@ def fdl_spectra_adjoint(X, dV, P: int):
         return fdl_spectra_adjoint_plain(X, dV, P)
     if X.device.type != "cuda":
         raise ValueError(f"fdl_spectra_adjoint: unsupported device {X.device}")
-    fn = _build.entry("fdlconv", "fdl_spectra_adjoint_f32", _ADJ_ARGTYPES)
     for name, t in (("X", X), ("dV", dV)):
         if (t.dtype != torch.float32 or t.device != X.device
                 or not t.is_contiguous() or t.data_ptr() % 8):
@@ -150,10 +152,19 @@ def fdl_spectra_adjoint(X, dV, P: int):
         raise ValueError(f"fdl_spectra_adjoint: the kernel takes 1 <= C, P <= "
                          f"65535 and B in [2, {MAX_BLOCK}]; got C={C}, P={P}, "
                          f"B={B}")
+    G = spectra_adjoint_plan(nf, B, P, _build.sm_count(X.device))[0]
+    return _spectra_adjoint_launch(X, dV, P, G)
+
+
+def _spectra_adjoint_launch(X, dV, P: int, G: int):
+    """Launch the spectra adjoint on checked arguments with G lags a
+    thread (tools/adjoint_bench.py also times other G)."""
+    fn = _build.entry("fdlconv", "fdl_spectra_adjoint_f32", _ADJ_ARGTYPES)
+    C, nf, B = X.shape[0], X.shape[1], X.shape[2] - 1
     dH = torch.empty((P, B + 1, 2), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):
         code = fn(_build.ptr(X), _build.ptr(dV), _build.ptr(dH), C, nf, B, P,
-                  _build.stream_of(X))
+                  G, _build.stream_of(X))
         fdl_spectra_adjoint.launches += 1
     _build.check("fdlconv", code, "fdl_spectra_adjoint")
     return dH
@@ -189,6 +200,24 @@ def mac_plan(C: int, nf: int, B: int) -> tuple[int, tuple[int, int, int]]:
     while G > 1 and C * slices * -(-nf // G) < 2 * SMS:
         G //= 2
     return G, (-(-nf // G), slices, C)
+
+
+def spectra_adjoint_plan(nf: int, B: int, P: int,
+                         sms: int) -> tuple[int, tuple[int, int]]:
+    """Lags per thread G and the spectra adjoint's grid (bin slices,
+    lag groups) on a card of `sms` SMs. A thread holds G lags' sums and a window of G frame
+    spectra in registers, and reads a frame spectrum ceil(P / G) times:
+    G is the largest power of two up to SPEC_ADJ_MAX_G (and up to the
+    lags that meet the signal, min(P, nf)) whose groups of those lags
+    still give every SM a block: a larger G converts fewer inputs per
+    multiply-add, and a block per SM keeps every SM walking. Lag groups
+    past nf only write their zero rows."""
+    slices = -(-(B + 1) // SPEC_ADJ_THREADS)
+    lags = min(P, nf)
+    G = min(SPEC_ADJ_MAX_G, 1 << (lags - 1).bit_length())
+    while G > 1 and slices * -(-lags // G) < sms:
+        G //= 2
+    return G, (slices, -(-P // G))
 
 
 def twiddle_table(B: int) -> np.ndarray:

@@ -20,8 +20,13 @@ Phases, each printing its own lines:
                and in float64), the two adjoint kernels (the envelope's
                in float32 and float64 with scalar and per-channel
                ballistics, a broadcast env0, T = 1, a T that is no chunk
-               multiple and C = 65; the FDL spectra adjoint with C = 1,
-               an odd C and P > F; the Moog adjoints (A4) at the chain
+               multiple, C = 65, a cluster at a T that is no part or
+               chunk multiple and one block a channel at C = SMs/2 + 1,
+               and 2^20 samples at C = 2 in float32, each run twice bit
+               for bit; the FDL spectra adjoint with C = 1, an odd C,
+               P > F, F = 1 and B = 8192 with a P that its G does not
+               divide, bit-equal for every G and on a second run); the
+               Moog adjoints (A4) at the chain
                block, the direct ZDF block, C = 65, T = 1, T = 333, os 1,
                2, 4 and 8, newton 1-8, float64, the clip case, a
                Huovilainen state whose tanh rows are not tanh(ds s) and
@@ -68,7 +73,10 @@ Phases, each printing its own lines:
                the training shapes, and the two Moog adjoints, the
                recording K5 / K6 and the two reverse kernels at the
                chain block, the ZDF block and 128 ch x 2^16 (record
-               bytes and bounds).
+               bytes and bounds); the two adjoint kernels' earlier
+               times, shares of their bounds, the spectra adjoint's
+               operations at the FP64 rate of its float64 sums, and its
+               batched-matmul yardstick.
   7. train   — the trainer of examples/gradient_eq_fit.py at the
                flagship's width with torch.optim.Adam: IR learning of
                the flagship's 2^15-tap IR through kernel_spectra_torch
@@ -77,6 +85,7 @@ Phases, each printing its own lines:
                gain, and the 3-band EQ fit through diff.py (800 steps);
                each held against the CPU path in float64 or the
                example's own bar, with the launches of the backward;
+               the step times beside their adjoint kernels' times;
   8. moog grad — the Moog gradient path: the chain's filter-moog node
                (Huovilainen, os 4) and the direct ZDF ladder streamed
                over 64 ch x 94 blocks of 512 under autograd with the
@@ -109,8 +118,17 @@ SR = 48000.0
 CHANNELS, N_FLAGSHIP = 8, 48128
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12        # H100 SXM float64 outside the tensor cores
 CHAIN_CH, CHAIN_BLOCK, CHAIN_BLOCKS = 64, 512, 94
 IR_BLOCK, IR_PARTS = 1024, 32   # IR learning: the flagship's 2^15-tap IR
+# the redesigned kernels' times before their redesign (graph replay, PERF.md
+# section 6), printed beside this run's
+EARLIER = {"envelope_adjoint": "0.1443 ms per flagship backward (first "
+                               "design, chip_smoke.py, NVIDIA H100 80GB "
+                               "HBM3, 700.00 W)",
+           "fdl_spectra_adjoint": "0.0577 ms per IR-learning step (first "
+                                  "design, chip_smoke.py, NVIDIA H100 80GB "
+                                  "HBM3, 700.00 W)"}
 
 # The effect chain at full width: 64 ch at 48 kHz in the chain's default
 # 512-sample blocks. The peak EQ is an RBJ one: the elliptic family reads
@@ -266,6 +284,8 @@ def kernel_breakdown(torch, fn, reps: int, prefixes) -> dict:
 
 
 def bound(nbytes: float, flops: float):
+    """The least time (ms) of the work and what bounds it: the bytes at
+    the HBM rate or the operations at the float32 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -304,7 +324,9 @@ def envelope_adjoint_work(c, t):
 def spectra_adjoint_work(c, nf, b, p):
     """Bytes (X and dV in, dH out) and operations (8 for a complex
     multiply-add per bin and per (channel, frame, lag) that the data has:
-    lags below nf only) of the FDL spectra adjoint."""
+    lags below nf only) of the FDL spectra adjoint. Its inputs and
+    outputs are float32, so its bound takes the float32 rate; the kernel's
+    float64 sums are a design choice, reported beside it at the FP64 rate."""
     pairs = sum(nf - q for q in range(min(p, nf)))
     return (16.0 * c * nf * (b + 1) + 8.0 * p * (b + 1),
             8.0 * c * (b + 1) * pairs)
@@ -1087,7 +1109,8 @@ def main() -> int:
     # against the plain version in float64 on the same inputs (printed):
     # at the compressor's ballistics an s sums ~7000 cotangent samples,
     # which the plain float32 walk adds in order and the kernel in chunks
-    # of ~47 from carries composed in float64.
+    # of ~15 from carries composed in float64. Each case runs the kernel
+    # twice on the same inputs: the two results hold the same bits.
     def snr_or_inf(ref, test):
         ref = np.asarray(ref, np.float64)
         if not np.any(ref):
@@ -1102,51 +1125,93 @@ def main() -> int:
         ("T=1", CHANNELS, 1, 0.2, a_main, r_main),
         ("T=15361 (no chunk multiple)", 4, 15361, 0.1, a_main, r_main),
         ("C=65 T=333 per-channel", 65, 333, rng.uniform(0, 1, 65),
-         rng.uniform(0.01, 0.5, 65), rng.uniform(1e-5, 0.05, 65))]
-    assert 15361 % envscan.adjoint_plan(15361)[0]
-    for dtype in (np.float32, np.float64):
-        for label, c, t, e0v, av, rv in env_adj_cases:
-            xa, e0a, aa, ra = env_case(c, np.abs(rng.standard_normal((c, t))),
-                                       e0v, av, rv, dtype)
-            _, tra = k4(xa, e0a, aa, ra)
-            ga = torch.as_tensor(rng.standard_normal((c, t)).astype(dtype),
-                                 device=dev)
-            gfa = torch.as_tensor(rng.standard_normal(c).astype(dtype),
-                                  device=dev)
-            args = (xa, tra, e0a, aa, ra, ga, gfa)
-            out = envscan.envelope_adjoint(*args)
-            p64 = envscan.envelope_adjoint_plain(*(v.cpu().double() for v in args))
-            p_same = (p64 if dtype == np.float64 else
-                      envscan.envelope_adjoint_plain(*(v.cpu() for v in args)))
-            out = [v.cpu() for v in out]
-            snr64 = [snr_or_inf(r.numpy(), o.numpy()) for r, o in zip(p64, out)]
-            snr_same = [snr_or_inf(r.numpy(), o.numpy())
-                        for r, o in zip(p_same, out)]
-            err = max(float(torch.max(torch.abs(o.double() - r)))
-                      for o, r in zip(out, p64))
-            kernels["envelope_adjoint"]["errs"].append(err)
-            bar = 100 if dtype == np.float32 else 200
-            print(f"check envelope_adjoint {label}: {np.dtype(dtype).name} "
-                  f"C={c} T={t} L={envscan.adjoint_plan(t)[0]} SNR vs plain "
-                  f"{np.dtype(dtype).name} " + ", ".join(
-                      f"{n} {v:.1f}" for n, v in zip(adj_names, snr_same))
-                  + " dB; vs plain f64 on the same inputs " + ", ".join(
-                      f"{v:.1f}" for v in snr64) + f" dB; max|err| {err:.3e}")
-            assert min(snr_same) >= bar, (label, dtype)
+         rng.uniform(0.01, 0.5, 65), rng.uniform(1e-5, 0.05, 65)),
+        ("cluster, T=48131 (no part or chunk multiple)", CHANNELS, 48131,
+         0.1, a_main, r_main),
+        (f"one block a channel, C={sms // 2 + 1}", sms // 2 + 1, N_FLAGSHIP,
+         rng.uniform(0, 1, sms // 2 + 1), a_main, r_main)]
+    # a part of several segments: float32 only, the plain walk over 2^20
+    # samples taking about a minute
+    env_adj_long = [("C=2 T=2^20 (segments a block)", 2, 1 << 20, 0.0, a_main,
+                     r_main)]
+
+    def env_plan(c, t, dtype):
+        return envscan.adjoint_plan(t, c, sms, np.dtype(dtype).itemsize)
+
+    assert env_plan(CHANNELS, N_FLAGSHIP, np.float32)[3] > 1
+    assert env_plan(CHANNELS, N_FLAGSHIP, np.float64)[3] > 1
+    seg_c, len_c, _, b_c = env_plan(CHANNELS, 48131, np.float32)
+    assert b_c > 1 and 48131 % -(-48131 // b_c) and seg_c % len_c
+    assert env_plan(sms // 2 + 1, N_FLAGSHIP, np.float32)[3] == 1
+    seg_l, _, _, b_l = env_plan(2, 1 << 20, np.float32)
+    assert -(-(1 << 20) // b_l) > seg_l
+    assert 15361 % env_plan(4, 15361, np.float32)[1]
+    for dtype, label, c, t, e0v, av, rv in (
+            [(d, *case) for d in (np.float32, np.float64)
+             for case in env_adj_cases]
+            + [(np.float32, *case) for case in env_adj_long]):
+        xa, e0a, aa, ra = env_case(c, np.abs(rng.standard_normal((c, t))),
+                                   e0v, av, rv, dtype)
+        _, tra = k4(xa, e0a, aa, ra)
+        ga = torch.as_tensor(rng.standard_normal((c, t)).astype(dtype),
+                             device=dev)
+        gfa = torch.as_tensor(rng.standard_normal(c).astype(dtype),
+                              device=dev)
+        args = (xa, tra, e0a, aa, ra, ga, gfa)
+        out = envscan.envelope_adjoint(*args)
+        again = envscan.envelope_adjoint(*args)
+        same_bits = all(bits_equal(torch, a, b) for a, b in zip(out, again))
+        long_case = t >= 1 << 20
+        p_same = envscan.envelope_adjoint_plain(
+            *(v.cpu() for v in args))
+        p64 = (p_same if dtype == np.float64 or long_case else
+               envscan.envelope_adjoint_plain(*(v.cpu().double()
+                                                for v in args)))
+        out = [v.cpu() for v in out]
+        snr64 = [snr_or_inf(r.numpy(), o.numpy()) for r, o in zip(p64, out)]
+        snr_same = [snr_or_inf(r.numpy(), o.numpy())
+                    for r, o in zip(p_same, out)]
+        err = max(float(torch.max(torch.abs(o.double() - r.double())))
+                  for o, r in zip(out, p64))
+        kernels["envelope_adjoint"]["errs"].append(err)
+        bar = 100 if dtype == np.float32 else 200
+        seg, length, threads, blocks = env_plan(c, t, dtype)
+        print(f"check envelope_adjoint {label}: {np.dtype(dtype).name} "
+              f"C={c} T={t} plan segment {seg} L={length} threads "
+              f"{threads} blocks a channel {blocks}; SNR vs plain "
+              f"{np.dtype(dtype).name} " + ", ".join(
+                  f"{n} {v:.1f}" for n, v in zip(adj_names, snr_same))
+              + " dB; " + ("" if long_case else "vs plain f64 on the same "
+                           "inputs " + ", ".join(f"{v:.1f}" for v in snr64)
+                           + " dB; ") + f"max|err| {err:.3e}; two runs "
+              f"bit-equal {same_bits}")
+        assert min(snr_same) >= bar and same_bits, (label, dtype)
 
     # the FDL spectra adjoint on K1's own frame spectra (its first launch's
     # scratch, kept as the Function keeps it) and the cotangent spectra,
     # against the plain version in float64 on the same float32 inputs; the
-    # kernel sums in float64
-    for label, c, n, b, p in [("IR learning main", CHANNELS, N_FLAGSHIP, 1024, 32),
-                              ("C=1", 1, 8 * 1024, 1024, 3),
-                              ("C=3 odd", 3, 6 * 1024, 1024, 5),
-                              ("C=5 P > F", 5, 4 * 256, 256, 10)]:
+    # kernel sums in float64, in an order that does not depend on its G
+    # lags a thread: every G it takes gives the same bits, and so do two
+    # runs
+    spec_cases = [("IR learning main", CHANNELS, N_FLAGSHIP, 1024, 32),
+                  ("C=1", 1, 8 * 1024, 1024, 3),
+                  ("C=3 odd", 3, 6 * 1024, 1024, 5),
+                  ("C=5 P > F", 5, 4 * 256, 256, 10),
+                  ("F=1", 4, 1024, 1024, 3),
+                  ("B=8192 P=13 (no multiple of G)", 2, 40 * 8192, 8192, 13),
+                  ("B=8192 chain block", CHANNELS, 6 * 8192, 8192, 5)]
+    assert fdlconv.spectra_adjoint_plan(40, 8192, 13, sms)[0] in (2, 4, 8)
+    assert 13 % fdlconv.spectra_adjoint_plan(40, 8192, 13, sms)[0]
+    for label, c, n, b, p in spec_cases:
         xa = randn(c, n)
-        hs_a = torch.as_tensor(fdlconv.kernel_spectra(ir[:p * b], b), device=dev)
+        hs_a = torch.as_tensor(fdlconv.kernel_spectra(
+            np.resize(ir, p * b), b), device=dev)
         _, Xa = fdlconv._launch(xa, hs_a, b, fdlconv.mac_plan(c, n // b, b)[0])
         dVa = fdlconv.cotangent_spectra(randn(c, n), b)
         dH = fdlconv.fdl_spectra_adjoint(Xa, dVa, p)
+        g_plan = fdlconv.spectra_adjoint_plan(n // b, b, p, sms)[0]
+        same_bits = all(bits_equal(torch, dH, fdlconv._spectra_adjoint_launch(
+            Xa, dVa, p, g)) for g in (1, 2, 4, 8))
         dH64 = fdlconv.fdl_spectra_adjoint_plain(Xa.double(), dVa.double(), p)
         dH32 = fdlconv.fdl_spectra_adjoint_plain(Xa, dVa, p)
         nf = n // b
@@ -1156,10 +1221,13 @@ def main() -> int:
         err = float(torch.max(torch.abs(dH.double() - dH64)))
         kernels["fdl_spectra_adjoint"]["errs"].append(err)
         print(f"check fdl_spectra_adjoint {label}: C={c} F={nf} B={b} P={p} "
-              f"SNR vs plain f64 {snr64:.1f} dB, vs plain f32 {snr32:.1f} dB, "
-              f"max|err| {err:.3e}, rows p >= F zero {unseen_zero}, DC and "
-              f"Nyquist imaginary parts zero {edges_zero}")
+              f"G={g_plan} SNR vs plain f64 {snr64:.1f} dB, vs plain f32 "
+              f"{snr32:.1f} dB, max|err| {err:.3e}, rows p >= F zero "
+              f"{unseen_zero}, DC and Nyquist imaginary parts zero "
+              f"{edges_zero}; bit-equal for G = 1, 2, 4, 8 and on a second "
+              f"run {same_bits}")
         assert snr64 >= 100 and edges_zero and unseen_zero in (None, True), label
+        assert same_bits, label
 
     # each autograd Function's gradients on the card against the CPU
     # path's Function on host copies of the same inputs: float32 on the
@@ -1582,21 +1650,52 @@ def main() -> int:
     kd["call_ms"] = time_ms(torch, kd_call, 20)
     kd["plain_ms"] = time_ms(
         torch, lambda: fdlconv.fdl_spectra_adjoint_plain(X_t, dV_t, P_ir), 5)
-    kd["bound_ms"], kd["bound_by"] = bound(*spectra_adjoint_work(
-        CHANNELS, nf_ir, B_ir, P_ir))
-    kd["library_ms"] = None
+    sa_bytes, sa_flops = spectra_adjoint_work(CHANNELS, nf_ir, B_ir, P_ir)
+    kd["bound_ms"], kd["bound_by"] = bound(sa_bytes, sa_flops)
+    # the design's own limit: its float64 sums at the FP64 rate (a note,
+    # not the bound: the function's inputs and outputs are float32)
+    f64_ops_ms = sa_flops / F64_FLOPS_PER_S * 1e3
+    # the yardstick: one batched complex matmul of the lag-unfolded conj(X),
+    # (B+1, P, C nf), by dV as (B+1, C nf, 1), the unfold built outside the
+    # timed call (the sums without the weight w_k, in float32)
+    Xc_t, Vc_t = torch.view_as_complex(X_t), torch.view_as_complex(dV_t)
+    unfold = torch.zeros((B_ir + 1, P_ir, CHANNELS, nf_ir),
+                         dtype=Xc_t.dtype, device=dev)
+    for q in range(min(P_ir, nf_ir)):
+        unfold[:, q, :, q:] = torch.conj(Xc_t[:, :nf_ir - q]).permute(2, 0, 1)
+    unfold = unfold.reshape(B_ir + 1, P_ir, CHANNELS * nf_ir)
+    v_cols = Vc_t.permute(2, 0, 1).reshape(B_ir + 1, CHANNELS * nf_ir, 1)
+    lib_call = lambda: torch.matmul(unfold, v_cols)
+    kd["library_ms"] = graph_ms(torch, lib_call, 20)
+    w_ir = torch.full((B_ir + 1,), 1.0 / B_ir, dtype=torch.float64, device=dev)
+    w_ir[0] = w_ir[B_ir] = 0.5 / B_ir
+    lib_dh = lib_call()[..., 0].T.to(torch.complex128) * w_ir
+    lib_dh = torch.view_as_real(lib_dh).clone()
+    lib_dh[:, [0, B_ir], 1] = 0.0
+    lib_snr = snr_db(host(fdlconv.fdl_spectra_adjoint_plain(
+        X_t.double(), dV_t.double(), P_ir)), host(lib_dh))
+    del unfold, v_cols
     kd["dv_fft_ms"] = graph_ms(
         torch, lambda: fdlconv.cotangent_spectra(g_ir, B_ir), 20)
     kd["ms_at"] = (f"per IR-learning step, {CHANNELS} x {N_FLAGSHIP}, "
-                   f"B = {B_ir}, P = {P_ir}")
+                   f"B = {B_ir}, P = {P_ir}, G = "
+                   f"{fdlconv.spectra_adjoint_plan(nf_ir, B_ir, P_ir, sms)[0]}")
     for name in ("envelope_adjoint", "fdl_spectra_adjoint"):
         k = kernels[name]
+        lib = ("none" if k["library_ms"] is None else
+               f"{k['library_ms']:.4f} ms (one batched complex matmul over "
+               f"the lag-unfolded conj(X); its result vs plain f64 "
+               f"{lib_snr:.1f} dB)")
         print(f"time {name} {k['ms_at']}: kernel {k['ms']:.4f} ms (graph replay; "
-              f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
-              f"{k['bound_ms']:.6f} ms ({k['bound_by']}), plain "
-              f"{k['plain_ms']:.4f} ms, library none"
-              + (f"; the torch.fft of dV {k['dv_fft_ms']:.4f} ms"
-                 if "dv_fft_ms" in k else "") + f" ({gpu})")
+              f"{k['call_ms']:.4f} ms as back-to-back calls; earlier "
+              f"{EARLIER[name]}), bound {k['bound_ms']:.6f} ms "
+              f"({k['bound_by']}), "
+              f"share {100 * k['bound_ms'] / k['ms']:.1f}%, plain "
+              f"{k['plain_ms']:.4f} ms, library {lib}"
+              + (f"; the torch.fft of dV {k['dv_fft_ms']:.4f} ms; its "
+                 f"float64 sums' operations at the FP64 rate "
+                 f"{f64_ops_ms:.6f} ms" if "dv_fft_ms" in k else "")
+              + f" ({gpu})")
     for label, (call, prefixes) in {
             "envelope_adjoint flagship": (ka_call, ("envelope_adjoint",)),
             "fdl_spectra_adjoint IR learning": (kd_call, ("fdl_spectra",))}.items():
@@ -2049,6 +2148,12 @@ def main() -> int:
           f"trajectory vs plain f64 {snr_own:.1f} dB; forward {fwd_ms:.4f} "
           f"ms, forward + backward {fb_ms:.4f} ms (means of 10) ({gpu})")
     assert snr_dx >= 80 and snr_dg >= 80 and snr_own >= 100
+    ka_ms, kd_ms = (kernels[n]["ms"] for n in ("envelope_adjoint",
+                                               "fdl_spectra_adjoint"))
+    print(f"train step times: flagship forward + backward {fb_ms:.4f} ms, "
+          f"its envelope_adjoint {ka_ms:.4f} ms ({100 * ka_ms / fb_ms:.1f}%); "
+          f"IR-learning step {ir_ms:.4f} ms, its fdl_spectra_adjoint "
+          f"{kd_ms:.4f} ms ({100 * kd_ms / ir_ms:.1f}%) ({gpu})")
 
     # 7c. the example's 3-band EQ fit through diff.py's designers and
     # sos_magnitude_db, 800 Adam steps at lr 0.05
@@ -2323,7 +2428,8 @@ def main() -> int:
                                    "counts_by_path", "dv_fft_ms",
                                    "scratch_bytes", "record_bytes",
                                    "record_ms", "record_bound_ms",
-                                   "record_launches_by_path") if key in k}}
+                                   "record_launches_by_path")
+                   if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))
     print(gpu)

@@ -125,7 +125,9 @@ def test_envelope_adjoint_plain_and_the_kernel_plan(rng):
     """The plain adjoint in float32 against the float64 one on the same
     trajectory (>= 100 dB on dtargets; the sums to float32 roundoff),
     and the adjoint kernel's split of a channel: one chunk a thread, at
-    most 1024 threads in whole warps, covering every sample."""
+    most 1024 threads in whole warps, covering every segment; segments
+    that fit shared memory and tile each block's part; a cluster of at
+    most 8 blocks only where 2 C <= SMs."""
     c, t = 4, 300
     targets = np.abs(rng.standard_normal((c, t)))
     e0, att, rel = rng.random(c) * 0.1, np.full(c, 0.2), rng.uniform(0.01, 0.1, c)
@@ -140,10 +142,19 @@ def test_envelope_adjoint_plain_and_the_kernel_plan(rng):
     for r, f in zip(ref[1:], f32[1:]):
         np.testing.assert_allclose(_np(f), _np(r), rtol=1e-5, atol=1e-5)
     for n in (1, 14, 15, 16, 47, 1000, 15360, 15361, 48128, 1 << 20):
-        length, threads = envscan.adjoint_plan(n)
-        assert threads % 32 == 0 and 32 <= threads <= envscan.ENV_MAX_THREADS
-        assert threads * length >= n and length >= envscan.ENV_MIN_CHUNK
-        assert (threads - 32) * length < n or threads == 32
+        for channels, itemsize in ((8, 4), (67, 4), (2, 8)):
+            seg, length, threads, blocks = envscan.adjoint_plan(
+                n, channels, 132, itemsize)
+            assert threads % 32 == 0 and 32 <= threads <= envscan.ENV_MAX_THREADS
+            assert threads * length >= seg and length >= envscan.ENV_MIN_CHUNK
+            assert (threads - 32) * length < seg or threads == 32
+            part = -(-n // blocks)
+            vec = 16 // itemsize
+            assert 3 * (-(-seg // vec) + 1) * vec * itemsize <= (
+                envscan.ENV_SMEM_BYTES)
+            assert seg <= part and (blocks - 1) * part < n
+            assert -(-part // seg) * seg - part < -(-part // seg)
+            assert blocks == 1 or 2 * channels <= 132
 
 
 def test_envelope_adjoint_float32_at_compressor_ballistics(rng):
