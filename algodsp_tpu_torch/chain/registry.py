@@ -9,10 +9,13 @@ full family x kind designer matrix like the webdemo's FilterDesigner
 order-derived oversampling.
 
 The port registers the node types whose modules it has: the ten filter
-keys (`filter-moog` included), `dyn-compressor` (feed-forward),
-`reverb-conv`, `delay-simple` and `widener`. Every other type of the
-JAX package's default registry raises KeyError saying that it is not
-ported yet (ROADMAP.md lists them).
+keys (`filter-moog` included), the dynamics family (`dyn-compressor`,
+feed-forward or feedback, `dyn-limiter`, `dyn-lookahead`, `dyn-gate`,
+`dyn-expander`, `dyn-deesser`, `dyn-transient`, `dyn-multiband`),
+`split-freq` (two output ports: low, high), `reverb-conv`,
+`delay-simple` and `widener`. Every other type of the JAX package's
+default registry raises KeyError saying that it is not ported yet
+(ROADMAP.md lists them).
 
 Every runtime is a functional `NodeRuntime`: explicit state,
 `process(state, x, sidechain) -> (state, y)`, and
@@ -29,7 +32,8 @@ import torch
 
 from algodsp_tpu_torch.chain.params import (
     FAMILY_MOOG, build_eq_sos, clamp, get_bool, get_int, get_num, get_str,
-    moog_oversampling_from_order, normalize_dynamics_detector,
+    moog_oversampling_from_order, normalize_deesser_detector,
+    normalize_deesser_mode, normalize_dynamics_detector,
     normalize_dynamics_topology, normalize_filter_family,
     normalize_filter_kind)
 
@@ -41,8 +45,6 @@ FILTER_TYPES = ("filter", "filter-lowpass", "filter-highpass",
 # Types of the JAX package's default registry that wait for their
 # modules, in the order ROADMAP.md ports them.
 NOT_PORTED = (
-    "dyn-limiter", "dyn-lookahead", "dyn-gate", "dyn-expander",
-    "dyn-deesser", "dyn-transient", "dyn-multiband", "split-freq",
     "delay", "reverb", "reverb-freeverb", "reverb-fdn",
     "chorus", "flanger", "ringmod", "phaser", "tremolo",
     "bitcrusher", "distortion", "dist-cheb", "transformer", "bass",
@@ -110,9 +112,12 @@ def default_registry() -> Registry:
     `registry_defaults.go:48-300`)."""
     from algodsp_tpu_torch._device import resolve_device
     from algodsp_tpu_torch.effects.dynamics import (
-        Compressor, DetectorMode, Topology)
+        BandConfig, Compressor, DeEsser, DetectorMode, Expander, Gate,
+        Limiter, LookaheadLimiter, MultibandCompressor, Topology,
+        TransientShaper)
     from algodsp_tpu_torch.effects.reverb import ConvolutionReverb
     from algodsp_tpu_torch.filters.biquad import BiquadChain
+    from algodsp_tpu_torch.filters.crossover import Crossover
     from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
 
     r = Registry()
@@ -242,5 +247,91 @@ def default_registry() -> Registry:
                        == "rms" else DetectorMode.PEAK),
         rms_window_ms=get_num(p, "rmsWindowMs", 30, 1, 1000)),
         sidechain=True))
+    r.register("dyn-limiter", lambda ctx, p: _stateful(Limiter(
+        ctx.sample_rate,
+        threshold_db=get_num(p, "thresholdDB", -0.1, -24, 0),
+        release_ms=get_num(p, "releaseMs", 100, 1, 5000)), sidechain=True))
+    r.register("dyn-lookahead", lambda ctx, p: _stateful(LookaheadLimiter(
+        ctx.sample_rate,
+        threshold_db=get_num(p, "thresholdDB", -1, -24, 0),
+        release_ms=get_num(p, "releaseMs", 100, 1, 5000),
+        lookahead_ms=max(get_num(p, "lookaheadMs", 3, 0, 200), 0.05)),
+        sidechain=True))
+    r.register("dyn-gate", lambda ctx, p: _stateful(Gate(
+        ctx.sample_rate,
+        threshold_db=get_num(p, "thresholdDB", -40, -80, 0),
+        ratio=get_num(p, "ratio", 10, 1, 100),
+        knee_db=get_num(p, "kneeDB", 6, 0, 24),
+        attack_ms=get_num(p, "attackMs", 0.1, 0.1, 1000),
+        hold_ms=get_num(p, "holdMs", 50, 0, 5000),
+        release_ms=get_num(p, "releaseMs", 100, 1, 5000),
+        range_db=get_num(p, "rangeDB", -80, -120, 0)), sidechain=True))
+    r.register("dyn-expander", lambda ctx, p: _stateful(Expander(
+        ctx.sample_rate,
+        threshold_db=get_num(p, "thresholdDB", -35, -80, 0),
+        ratio=get_num(p, "ratio", 2, 1, 100),
+        knee_db=get_num(p, "kneeDB", 6, 0, 24),
+        attack_ms=get_num(p, "attackMs", 1, 0.1, 1000),
+        release_ms=get_num(p, "releaseMs", 100, 1, 5000),
+        range_db=get_num(p, "rangeDB", -60, -120, 0)), sidechain=True))
+    r.register("dyn-deesser", lambda ctx, p: _stateful(DeEsser(
+        ctx.sample_rate,
+        freq_hz=get_num(p, "freqHz", 6000, 1000, ctx.sample_rate * 0.49),
+        q=get_num(p, "q", 1.5, 0.1, 10),
+        threshold_db=get_num(p, "thresholdDB", -20, -80, 0),
+        ratio=get_num(p, "ratio", 4, 1, 100),
+        knee_db=get_num(p, "kneeDB", 3, 0, 12),
+        attack_ms=get_num(p, "attackMs", 0.5, 0.01, 50),
+        release_ms=get_num(p, "releaseMs", 20, 1, 500),
+        range_db=get_num(p, "rangeDB", -24, -60, 0),
+        split_band=normalize_deesser_mode(get_str(p, "mode")) == "splitband",
+        detect_bandpass=normalize_deesser_detector(
+            get_str(p, "detector")) == "bandpass",
+        listen=get_bool(p, "listen"))))
+    r.register("dyn-transient", lambda ctx, p: _stateful(TransientShaper(
+        ctx.sample_rate,
+        attack_amount=get_num(p, "attack", 0, -1, 1),
+        sustain_amount=get_num(p, "sustain", 0, -1, 1),
+        attack_ms=get_num(p, "attackMs", 10, 0.1, 200),
+        release_ms=get_num(p, "releaseMs", 120, 1, 2000))))
+
+    def _multiband(ctx, p):
+        # runtime_dynamics.go:364-437
+        bands = get_int(p, "bands", 3, 2, 3)
+        order = get_int(p, "order", 4, 2, 24)
+        if order % 2:
+            order += 1
+        c1 = get_num(p, "cross1Hz", 250, 40, ctx.sample_rate * 0.2)
+        freqs = [c1]
+        if bands == 3:
+            freqs.append(get_num(p, "cross2Hz", 3000, c1 + 100,
+                                 ctx.sample_rate * 0.45))
+        shared = dict(knee_db=get_num(p, "kneeDB", 6, 0, 24),
+                      attack_ms=get_num(p, "attackMs", 8, 0.1, 1000),
+                      release_ms=get_num(p, "releaseMs", 120, 1, 5000),
+                      makeup_gain_db=get_num(p, "makeupGainDB", 0, 0, 24))
+        cfg = [BandConfig(
+                   threshold_db=get_num(p, "lowThresholdDB", -20, -80, 0),
+                   ratio=get_num(p, "lowRatio", 2.5, 1, 20), **shared),
+               BandConfig(
+                   threshold_db=get_num(p, "midThresholdDB", -18, -80, 0),
+                   ratio=get_num(p, "midRatio", 3.0, 1, 20), **shared)]
+        if bands == 3:
+            cfg.append(BandConfig(
+                threshold_db=get_num(p, "highThresholdDB", -14, -80, 0),
+                ratio=get_num(p, "highRatio", 4.0, 1, 20), **shared))
+        return _stateful(MultibandCompressor(freqs, order, ctx.sample_rate,
+                                             configs=cfg))
+    r.register("dyn-multiband", _multiband)
+
+    # -- split-freq (2 output ports: lo, hi) ------------------------------
+    def _split_freq(ctx, p):
+        xo = Crossover(get_num(p, "freqHz", 1000, 20, ctx.sample_rate * 0.49,
+                               aliases=("freq",)),
+                       get_int(p, "order", 4, 2, 8), ctx.sample_rate)
+        return NodeRuntime(init_state=xo.init_state,
+                           process=lambda st, x, sc: xo.process_stream(st, x),
+                           n_outputs=2, effect=xo)
+    r.register("split-freq", _split_freq)
 
     return r

@@ -77,7 +77,12 @@ def chain_from_json(raw: str, sample_rate: float, *, block_size: int = 512,
 
 def state_from_numpy(tree, device=None):
     """Turn a state pytree of arrays (dicts, lists, tuples) into tensors
-    on `device` (the CUDA card unless given)."""
+    on `device` (the CUDA card unless given), each keeping its dtype and
+    the tree its structure: e.g. a JAX processor's state taken mid-stream
+    (`jax.tree.map(np.asarray, state)`), with the Gate's int32 `hold`,
+    the LookaheadLimiter's nested {"core", "delay"} dict and the
+    multiband compressor's lists of crossover and band states, becomes
+    the port's state for the same processor."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, device) for k, v in tree.items()}

@@ -8,9 +8,9 @@ Feed-forward dataflow:
   of `ops/envscan.py`) -> gain computer (elementwise log2/exp2) ->
   multiply.
 
-The feedback topology, where the detector reads the previous output
-sample, needs a per-sample kernel of its own on the card; it is queued
-in ROADMAP.md and raises NotImplementedError here.
+Feedback dataflow, where the detector reads the previous output
+sample: one per-sample walk, the CUDA kernel D1 of `ops/dynfb.py`
+(`csrc/dynamics.cu`), envelope, gain computer and output together.
 """
 
 from __future__ import annotations
@@ -23,11 +23,12 @@ import torch
 
 from algodsp_tpu_torch import _build
 from algodsp_tpu_torch._device import resolve_device
-from algodsp_tpu_torch.ops import linrec
+from algodsp_tpu_torch.ops import dynfb, linrec
 from algodsp_tpu_torch.ops.biquad_cascade import biquad_cascade
 from algodsp_tpu_torch.ops.envscan import envelope_scan
 
 LOG2_OF_10_DIV_20 = math.log2(10.0) / 20.0
+_MIN_FEEDBACK_GAIN = 1e-9
 
 
 class Topology(enum.Enum):
@@ -134,6 +135,14 @@ class DynamicsCore:
         sr = cfg.sample_rate
         self.attack_coeff = 1.0 - math.exp(-math.log(2.0) / (cfg.attack_ms * 1e-3 * sr))
         self.release_coeff = math.exp(-math.log(2.0) / (cfg.release_ms * 1e-3 * sr))
+        if cfg.feedback_ratio_scale:
+            self.fb_attack_coeff = 1.0 - math.exp(
+                -math.log(2.0) / (cfg.attack_ms * 1e-3 * sr * cfg.ratio))
+            self.fb_release_coeff = math.exp(
+                -math.log(2.0) / (cfg.release_ms * 1e-3 * sr * cfg.ratio))
+        else:
+            self.fb_attack_coeff = self.attack_coeff
+            self.fb_release_coeff = self.release_coeff
         self.threshold_log2 = cfg.threshold_db * LOG2_OF_10_DIV_20
         self.knee_width_log2 = cfg.knee_db * LOG2_OF_10_DIV_20
         self.inv_knee_width_log2 = (1.0 / self.knee_width_log2
@@ -154,9 +163,6 @@ class DynamicsCore:
                    dtype=torch.float32, device=None):
         """State dict of (batch_shape) tensors, on the CUDA card unless
         `device` says otherwise."""
-        if self.cfg.topology == Topology.FEEDBACK:
-            raise NotImplementedError(
-                "dynamics: the feedback topology is not ported yet")
         device = resolve_device(device)
         zeros = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
         batch_shape = tuple(batch_shape)
@@ -167,6 +173,10 @@ class DynamicsCore:
             st["lp"] = zeros(batch_shape)
         if self.hp_coeff > 0:
             st["hp_lp"] = zeros(batch_shape)
+        if self.cfg.topology == Topology.FEEDBACK:
+            st["prev_gain"] = torch.ones(batch_shape, dtype=dtype,
+                                         device=device)
+            st["prev_abs"] = zeros(batch_shape)
         return st
 
     @staticmethod
@@ -223,9 +233,18 @@ class DynamicsCore:
         new_state["rms_hist"] = ext[..., -(w - 1):]
         return new_state, torch.sqrt(torch.clamp(mean, min=0.0))
 
+    def _ratio_scaled(self) -> bool:
+        return (self.cfg.topology == Topology.FEEDBACK
+                and self.cfg.feedback_ratio_scale)
+
+    def _compression_factor(self) -> float:
+        if self._ratio_scaled():
+            return self.cfg.ratio - 1.0
+        return 1.0 - 1.0 / self.cfg.ratio
+
     def gain_for_level(self, level):
         """Elementwise gain computer (`core.go:288-329`)."""
-        cf = 1.0 - 1.0 / self.cfg.ratio
+        cf = self._compression_factor()
         return compression_gain(level, self.threshold_log2, self.cfg.knee_db,
                                 self.knee_width_log2, self.inv_knee_width_log2,
                                 cf)
@@ -237,19 +256,55 @@ class DynamicsCore:
         state, pre = self._prefilter(state, sidechain)
         src = torch.abs(pre)
         state, src = self._rms(state, src)
-        env_f, env = dynamics_env_scan(src, state["envelope"],
-                                       self.attack_coeff, self.release_coeff)
+        a, r = self.attack_coeff, self.release_coeff
+        if self._ratio_scaled():
+            a, r = self.fb_attack_coeff, self.fb_release_coeff
+        env_f, env = dynamics_env_scan(src, state["envelope"], a, r)
         state = dict(state)
         state["envelope"] = env_f
         return state, env
 
     def process(self, state, x, sidechain=None):
-        """(state, x[, sidechain]) -> (state, y, gain)."""
-        if self.cfg.topology != Topology.FEEDFORWARD:
-            raise NotImplementedError(
-                "dynamics: the feedback topology is not ported yet")
+        """(state, x[, sidechain]) -> (state, y, gain).
+
+        Feed-forward: the detector chain, then elementwise work.
+        Feedback (`core.go:274-286`): the per-sample walk of D1, which
+        reads the previous output and no sidechain, as the reference's
+        scan does."""
+        if self.cfg.topology == Topology.FEEDBACK:
+            return self._process_feedback(state, x)
         sc = x if sidechain is None else sidechain
         state, level = self.detector(state, sc)
         gain = self.gain_for_level(level)
         y = x * gain * self.makeup_gain_lin
         return state, y, gain
+
+    def feedback_params(self) -> dynfb.FeedbackParams:
+        """The constants of the feedback walk (`ops/dynfb.py`)."""
+        scaled = self._ratio_scaled()
+        return dynfb.FeedbackParams(
+            attack=self.fb_attack_coeff if scaled else self.attack_coeff,
+            release=self.fb_release_coeff if scaled else self.release_coeff,
+            threshold_log2=self.threshold_log2, knee_db=self.cfg.knee_db,
+            knee_width_log2=self.knee_width_log2,
+            inv_knee_width_log2=self.inv_knee_width_log2,
+            compression_factor=self._compression_factor(),
+            makeup=self.makeup_gain_lin)
+
+    def _process_feedback(self, state, x):
+        """Leading dims flatten onto D1's channel axis. The state's
+        `prev_gain` is the last gain, floored at 1e-9; T = 0 leaves the
+        state as it was."""
+        lead, t = x.shape[:-1], x.shape[-1]
+        flat = lambda v: torch.broadcast_to(v.to(x.dtype), lead).reshape(-1)
+        y, gain, env_f, abs_f = dynfb.dynamics_feedback(
+            x.reshape(lead.numel(), t).contiguous(),
+            flat(state["envelope"]).contiguous(),
+            flat(state["prev_abs"]).contiguous(), self.feedback_params())
+        state = dict(state)
+        if t:
+            state["envelope"] = env_f.reshape(lead)
+            state["prev_abs"] = abs_f.reshape(lead)
+            state["prev_gain"] = torch.clamp(gain[:, -1],
+                                             min=_MIN_FEEDBACK_GAIN).reshape(lead)
+        return state, y.reshape(lead + (t,)), gain.reshape(lead + (t,))

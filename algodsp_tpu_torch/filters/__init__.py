@@ -1,3 +1,4 @@
 from algodsp_tpu_torch.filters.biquad import BiquadChain, Section, sos_array
+from algodsp_tpu_torch.filters.crossover import Crossover, MultiBand
 
-__all__ = ["BiquadChain", "Section", "sos_array"]
+__all__ = ["BiquadChain", "Crossover", "MultiBand", "Section", "sos_array"]

@@ -11,13 +11,20 @@ Runtime engines, picked by `process(mode="auto")`:
   channel axis) of chains without slow poles and of at most 64 runtime
   sections. On a CPU tensor the same call runs the kernel's plain
   version.
+- "cascade": the whole-cascade block engine of `ops/cascade.py` (one
+  Toeplitz product for all sections a block, the compact state carried
+  by constant-matrix sweeps), for N a multiple of the block: float32
+  chains with slow poles (faster and more accurate there than the
+  blocked engine), and `exact=True`, as in the reference.
 - "blocked": the per-section Toeplitz engine of `ops/linrec.py`, which
-  carries slow poles in the modal basis; it also serves `exact=True`
-  (float64), other float64 inputs and longer chains.
+  carries slow poles in the modal basis; it serves everything else:
+  float64 inputs, chains over 64 sections, slow poles on other lengths.
 - "scan": the per-sample recurrence, the cross-check for short inputs.
-The TPU-only engines (whole-cascade, lane folding) have no counterpart
-here: the whole-cascade engine is queued in ROADMAP.md, and folding
-exists only to fill the TPU's 128 lanes.
+Both matrix engines run their float32 products in full float32
+(`linrec.full_float32()`). Lane folding (`process_folded` in the
+reference) is not ported: it packs few channels into the TPU's 128
+lanes, and the CUDA cascade kernel spreads a channel over a cluster of
+blocks instead.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from algodsp_tpu_torch._device import resolve_device
+from algodsp_tpu_torch.ops import cascade as cascmod
 from algodsp_tpu_torch.ops import linrec
 from algodsp_tpu_torch.ops.biquad_cascade import MAX_SECTIONS, biquad_cascade
 
@@ -108,9 +116,15 @@ class BiquadChain:
                            dtype=dtype, device=resolve_device(device))
 
     def _auto_mode(self, x) -> str:
-        if (x.dtype == torch.float32 and not self._has_slow_poles
-                and self.num_runtime_sections <= MAX_SECTIONS):
-            return "kernel"
+        if x.dtype == torch.float32 and not self._has_slow_poles:
+            if self.num_runtime_sections <= MAX_SECTIONS:
+                return "kernel"
+        elif (x.dtype == torch.float32 and x.shape[-1] > 0
+              and x.shape[-1] % self.block_size == 0):
+            # slow poles in float32 on block multiples: the whole-cascade
+            # engine measured faster than the blocked one and more
+            # accurate against float64 (PERF.md section 6)
+            return "cascade"
         return "blocked"
 
     def _run(self, state, x, mode: str):
@@ -124,6 +138,9 @@ class BiquadChain:
             y, new_state = biquad_cascade(x.reshape(-1, n).contiguous(),
                                           self.runtime_sos, self.gain, state)
             return new_state.reshape(lead + (s, 4)), y.reshape(x.shape)
+        if mode == "cascade":
+            y, st = self.process_cascade(x, state=state, return_state=True)
+            return st, y
         if mode not in ("blocked", "scan"):
             raise ValueError(f"biquad: unknown mode {mode!r}")
         if self.gain != 1.0:
@@ -135,32 +152,68 @@ class BiquadChain:
         """One-shot filtering from zero state (`chain.go:74-85`).
 
         mode: "auto" (the kernel for float32 chains without slow poles
-        of at most MAX_SECTIONS = 64 runtime sections, the blocked engine
-        otherwise), "kernel", "blocked" or "scan". On the card
-        mode="kernel" raises on longer chains.
+        of at most MAX_SECTIONS = 64 runtime sections, the whole-cascade
+        engine for float32 chains with slow poles where N is a multiple
+        of the block, the blocked engine otherwise), "kernel",
+        "blocked", "cascade" or "scan". On the card mode="kernel" raises
+        on longer chains.
 
         exact: the float64 escape hatch for slow-pole chains: the
-        blocked engine evaluates in float64 and the result is cast back
-        to x.dtype.
+        selected engine evaluates in float64 and the result is cast back
+        to x.dtype; "auto" takes the whole-cascade engine where N is a
+        multiple of the block and the blocked engine otherwise, as the
+        reference does.
         """
         if exact:
             if mode == "kernel":
                 raise ValueError("exact=True runs on the float64 engines; use "
-                                 "mode 'auto', 'blocked' or 'scan'")
+                                 "mode 'auto', 'blocked', 'cascade' or 'scan'")
             if mode == "auto":
-                mode = "blocked"
+                mode = ("cascade" if x.shape[-1] % self.block_size == 0
+                        else "blocked")
             y = self.process(x.to(torch.float64), mode=mode)
             return y.to(x.dtype)
         if mode == "auto":
             mode = self._auto_mode(x)
+        if mode == "cascade":
+            return self.process_cascade(x)
         state = (None if mode == "kernel" else
                  self.init_state(x.shape[:-1], dtype=x.dtype, device=x.device))
         _, y = self._run(state, x, mode)
         return y
 
+    def process_cascade(self, x, state=None, return_state: bool = False):
+        """Whole-cascade block engine (`ops/cascade.py`): the entire SOS
+        cascade closed a block by one Toeplitz product plus compact-state
+        carry sweeps. Exact (the same recurrence in another order);
+        threads the (..., S, 4) streaming state when given. N must be a
+        multiple of `block_size`.
+
+        Long one-shot calls (N >= 2^16, a multiple of 256, no state) use
+        a 256-sample block with the sections re-conditioned at that
+        length, as the reference does; streaming calls keep
+        `block_size`, to which the state layout is tied."""
+        if (state is None and not return_state and self.block_size == 128
+                and x.shape[-1] % 256 == 0 and x.shape[-1] >= (1 << 16)):
+            if not hasattr(self, "_sos_bulk256"):
+                self._sos_bulk256 = (linrec.condition_sos(self.sos, 256)
+                                     if self._condition else self.sos)
+            return cascmod.cascade_apply_blocked(
+                x, self._sos_bulk256, block=256, gain=self.gain)
+        s0 = None if state is None else cascmod.chain_state_to_compact(
+            state.to(x.dtype))
+        out = cascmod.cascade_apply_blocked(
+            x, self.runtime_sos, block=self.block_size, s0=s0,
+            return_state=return_state, gain=self.gain)
+        if return_state:
+            y, s_fin = out
+            return y, cascmod.compact_state_to_chain(
+                s_fin, self.num_runtime_sections)
+        return out
+
     def process_stream(self, state, x, *, mode: str = "auto"):
         """Streaming block processing: (state, x) -> (state, y), for any
-        block length."""
+        block length (mode "cascade": a multiple of `block_size`)."""
         if tuple(state.shape[-2:]) != (self.num_runtime_sections, 4):
             raise ValueError(
                 f"biquad: state has {tuple(state.shape[-2:])} trailing dims, "
@@ -181,9 +234,10 @@ class BiquadChain:
         with np.errstate(divide="ignore"):
             return 20.0 * np.log10(mag)
 
-    def impulse_response(self, n: int) -> np.ndarray:
-        """First n samples of the impulse response, float64 on the host."""
-        x = torch.zeros(n, dtype=torch.float64)
+    def impulse_response(self, n: int, dtype=torch.float64) -> np.ndarray:
+        """First n samples of the impulse response (`response.go:77-97`),
+        computed in `dtype` on the host."""
+        x = torch.zeros(n, dtype=dtype)
         x[0] = 1.0
         return self.process(x, mode="scan" if n < 256 else "blocked").numpy()
 
@@ -224,3 +278,25 @@ def magnitude_squared(sos, freqs, sample_rate: float) -> np.ndarray:
                + 2.0 * (a1 + a1 * a2) * cw + 2.0 * a2 * c2w)
         out *= num / den
     return out
+
+
+def poles_zeros(section) -> tuple[np.ndarray, np.ndarray]:
+    """Poles and zeros of one section (`polezero.go:15-80`).
+
+    Returns (zeros, poles) as complex arrays (length <= 2 each).
+    """
+    b0, b1, b2, a1, a2 = np.asarray(section, dtype=np.float64).reshape(5)
+    zeros = np.roots([b0, b1, b2]) if b0 != 0 else (
+        np.roots([b1, b2]) if b1 != 0 else np.array([]))
+    poles = np.roots([1.0, a1, a2])
+    return (np.atleast_1d(zeros).astype(np.complex128),
+            poles.astype(np.complex128))
+
+
+def is_stable(sos) -> bool:
+    """True if every section's poles are strictly inside the unit circle."""
+    for row in sos_array(sos):
+        _, poles = poles_zeros(row)
+        if np.any(np.abs(poles) >= 1.0):
+            return False
+    return True

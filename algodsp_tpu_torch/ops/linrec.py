@@ -18,17 +18,23 @@ doubling scan. Slow complex poles carry in the modal basis. Everything
 host-side (kernels, conditioning, residual flags) is float64 NumPy and
 identical to the JAX module; the runtime is PyTorch.
 
-This engine serves slow-pole chains, `exact=True` (float64) and every
-CPU call; chains without slow poles on the card go to the fused CUDA
-cascade (`ops/biquad_cascade.py`). Its Toeplitz product is a float32
-`torch.einsum`, which stays full float32 on the card as long as
-`torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's default).
+This engine serves float64 chains, chains over 64 sections and
+slow-pole float32 chains on lengths that are no block multiple, and it
+is the cascade kernel's plain version on the CPU; chains without slow
+poles on the card go to the fused CUDA cascade (`ops/biquad_cascade.py`),
+slow-pole float32 chains on block multiples to `ops/cascade.py`. Its Toeplitz products and carry products are
+float32 `torch.einsum`s and `@`s, run under `full_float32()`: whatever
+the caller set (`torch.set_float32_matmul_precision("high")` puts
+float32 matmuls on 10-bit TF32 on the card, "medium" on bfloat16 in
+oneDNN on the CPU), they run in full float32, as the reference pins
+`Precision.HIGHEST`, and the caller's setting is restored afterwards.
 
 Streaming state is (x_{n-1}, x_{n-2}, y_{n-1}, y_{n-2}) per section.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from functools import lru_cache
 
@@ -36,6 +42,58 @@ import numpy as np
 import torch
 
 DEFAULT_BLOCK = 128
+
+
+def _precision_backends():
+    """The per-backend float32 matmul settings of PyTorch's newer API
+    (`torch.backends.cuda.matmul.fp32_precision` and the oneDNN one),
+    where this PyTorch has them."""
+    out = []
+    for m in (torch.backends.cuda.matmul,
+              getattr(getattr(torch.backends, "mkldnn", None), "matmul", None)):
+        try:
+            m.fp32_precision
+        except (AttributeError, RuntimeError):
+            continue
+        out.append(m)
+    return out
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Run float32 matmuls in full float32 inside the block, whatever
+    the caller set, and restore the caller's settings on exit, also on
+    an exception.
+
+    Sets `torch.set_float32_matmul_precision("highest")` and
+    `torch.backends.cuda.matmul.allow_tf32 = False`. Where PyTorch has
+    per-backend settings (`fp32_precision`), those are saved and
+    restored as they were, "none" included, so that the caller's state
+    reads back the same through either API; a caller whose settings
+    already mix the two APIs (the global getter raises) keeps its
+    global value, and only the per-backend ones are pinned to "ieee"."""
+    backends = _precision_backends()
+    saved_backends = [(m, m.fp32_precision) for m in backends]
+    try:
+        saved_global = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        saved_global = None
+    saved_tf32 = None if backends else torch.backends.cuda.matmul.allow_tf32
+    if saved_global is None:
+        for m in backends:
+            m.fp32_precision = "ieee"
+    else:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        if saved_global is not None:
+            torch.set_float32_matmul_precision(saved_global)
+        if saved_tf32 is not None:
+            torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+        for m, v in saved_backends:
+            m.fp32_precision = v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,7 +287,8 @@ def _affine_scan(G, w):
     """Inclusive scan of c_k = G c_{k-1} + w_k over axis -2 of w, c_{-1} = 0.
 
     G: (2, 2); w: (..., K, 2). Hillis-Steele doubling: after the step
-    with shift d every c_k holds sum_{j < 2d} G^j w_{k-j}."""
+    with shift d every c_k holds sum_{j < 2d} G^j w_{k-j}. Call it under
+    `full_float32()`."""
     c = w
     A = G
     d = 1
@@ -247,7 +306,8 @@ def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2):
 
     f: (..., N) with N a multiple of kernels.block.
     y1, y2: (...,) initial conditions y_{-1}, y_{-2}.
-    Returns y: (..., N).
+    Returns y: (..., N). Its products run in full float32
+    (`full_float32()`).
     """
     b = kernels.block
     n = f.shape[-1]
@@ -260,16 +320,18 @@ def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2):
     Pm = _const(kernels.Pm[section], f)        # (2, B)
 
     fb = f.reshape(f.shape[:-1] + (k, b))
-    u = torch.einsum("...kb,cb->...kc", fb, L)                  # zero-IC
-    w = torch.stack([u[..., b - 1], u[..., b - 2]], dim=-1)     # (..., K, 2)
-    c_init = torch.stack([y1, y2], dim=-1).to(f.dtype)
-    if bool(kernels.modal[section]):
-        w = torch.einsum("ij,...j->...i", S, w)
-        c_init = torch.einsum("ij,...j->...i", S, c_init)
-    # fold the initial conditions into w_0: c_0 = Gm c_{-1} + w_0
-    w0 = w[..., :1, :] + torch.einsum("ij,...j->...i", Gm, c_init)[..., None, :]
-    w = torch.cat([w0, w[..., 1:, :]], dim=-2)
-    c = _affine_scan(Gm, w)
+    with full_float32():
+        u = torch.einsum("...kb,cb->...kc", fb, L)              # zero-IC
+        w = torch.stack([u[..., b - 1], u[..., b - 2]], dim=-1)  # (..., K, 2)
+        c_init = torch.stack([y1, y2], dim=-1).to(f.dtype)
+        if bool(kernels.modal[section]):
+            w = torch.einsum("ij,...j->...i", S, w)
+            c_init = torch.einsum("ij,...j->...i", S, c_init)
+        # fold the initial conditions into w_0: c_0 = Gm c_{-1} + w_0
+        w0 = (w[..., :1, :]
+              + torch.einsum("ij,...j->...i", Gm, c_init)[..., None, :])
+        w = torch.cat([w0, w[..., 1:, :]], dim=-2)
+        c = _affine_scan(Gm, w)
     # carry INTO block k is c_{k-1}; block 0 gets the true ICs
     c_prev = torch.cat([c_init[..., None, :], c[..., :-1, :]], dim=-2)
     y = u + c_prev[..., 0:1] * Pm[0] + c_prev[..., 1:2] * Pm[1]

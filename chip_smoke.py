@@ -45,7 +45,15 @@ Phases, each printing its own lines:
                envelope, FDL, fftconvolve and Moog calls carry a grad_fn, a
                float64 Compressor with sidechain prefilters (and the
                gradient of a float32 one), a 70-section float32 chain in
-               auto mode, and envelope_scan with T = 0;
+               auto mode, and envelope_scan with T = 0; D1, the feedback
+               dynamics kernel, against its plain version on the card and
+               on the CPU (three compressors, float32 and float64, the
+               chain block, C = 65 at T = 1 and 333, NaN and +-inf in x,
+               two calls bit-equal to one); fault 6 (the blocked and
+               whole-cascade engines under set_float32_matmul_precision(
+               "high") bit-equal to the default, the setting restored);
+               the whole-cascade engine against float64, streamed, and
+               the three engines' times behind the auto dispatch;
   3. flagship — drive the flagship forward (8 ch x 48128 samples,
                Butterworth -> A-weighting -> compressor -> 2^15-tap
                reverb) through the port's entry points, check that it
@@ -97,7 +105,18 @@ Phases, each printing its own lines:
                node over 8 streamed blocks (Adam); and 8 blocks of each
                over the record budget (K5 / K6, then the checkpoint
                adjoint), against the record route's gradients;
-  9. kernels — the line of every kernel with its launches by path.
+  9. dynamics — the dynamics family through the effect chain: DYN_GRAPH
+               (gate -> feedback compressor -> split-band de-esser ->
+               3-band multiband compressor -> lookahead limiter) and
+               SPLIT_GRAPH (split-freq -> transient shaper / expander ->
+               limiter) over 64 ch x 94 blocks of 512, launches per block
+               by kernel (K3, K4, D1; no plain version called), 8 blocks
+               against the plain CPU path, the gate's decisions against
+               the CPU path's, ms per block and real-time factor; the
+               feedback Compressor called directly at 8 ch x 48128 in
+               float32 and float64; D1's times beside its byte bound and
+               the chain bound of its dependent walk;
+ 10. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -151,6 +170,54 @@ CHAIN_GRAPH = {
                     {"from": "moog", "to": "comp"}, {"from": "comp", "to": "eq"},
                     {"from": "eq", "to": "verb"},
                     {"from": "verb", "to": "_output"}]}
+
+# The dynamics family through the same chain at the same width: every
+# processor of effects/dynamics and split-freq's two ports. DYN_GRAPH runs
+# D1 (the feedback compressor), K4 (gate, de-esser, the three bands, the
+# lookahead limiter) and K3 (the de-esser's detector and crossover, the
+# 3 kHz crossover; the 250 Hz one has slow poles and takes the blocked
+# engine); SPLIT_GRAPH runs K3 (the 1200 Hz split) and K4.
+DYN_GRAPH = {
+    "nodes": [
+        {"id": "gate", "type": "dyn-gate",
+         "params": {"thresholdDB": -45, "holdMs": 5, "rangeDB": -70}},
+        {"id": "comp", "type": "dyn-compressor",
+         "params": {"topology": "feedback", "detector": "rms",
+                    "thresholdDB": -20, "ratio": 4, "rmsWindowMs": 5}},
+        {"id": "deess", "type": "dyn-deesser",
+         "params": {"mode": "splitband", "freqHz": 6500, "thresholdDB": -30}},
+        {"id": "mb", "type": "dyn-multiband",
+         "params": {"bands": 3, "order": 4}},
+        {"id": "look", "type": "dyn-lookahead",
+         "params": {"thresholdDB": -3, "lookaheadMs": 2}}],
+    "connections": [{"from": "_input", "to": "gate"},
+                    {"from": "gate", "to": "comp"},
+                    {"from": "comp", "to": "deess"},
+                    {"from": "deess", "to": "mb"},
+                    {"from": "mb", "to": "look"},
+                    {"from": "look", "to": "_output"}]}
+SPLIT_GRAPH = {
+    "nodes": [
+        {"id": "split", "type": "split-freq",
+         "params": {"freqHz": 1200, "order": 4}},
+        {"id": "tr", "type": "dyn-transient",
+         "params": {"attack": 0.5, "sustain": -0.3, "attackMs": 2}},
+        {"id": "ex", "type": "dyn-expander",
+         "params": {"thresholdDB": -40, "ratio": 2}},
+        {"id": "lim", "type": "dyn-limiter", "params": {"thresholdDB": -6}}],
+    "connections": [{"from": "_input", "to": "split"},
+                    {"from": "split", "to": "tr", "fromPortIndex": 0},
+                    {"from": "split", "to": "ex", "fromPortIndex": 1},
+                    {"from": "tr", "to": "lim"},
+                    {"from": "ex", "to": "lim"},
+                    {"from": "lim", "to": "_output"}]}
+# The dynamics graph's feedback compressor, as its node builds it
+FB_GRAPH_KW = {"threshold_db": -20.0, "ratio": 4.0}
+# Operations per D1 step, counting log2 and exp2 as one each (so the
+# operation bound is a floor): the compare and the two branches (7), the
+# level's guard (2), log2 and the threshold (2), the knee (8), the factor
+# and exp2 (3), the level's select (2), the output and its magnitude (3).
+D1_STEP_OPS = 27
 
 # Operations per ladder step, counting each tanh as one operation (so the
 # operation bound is a floor): the classic step is the feedback input
@@ -441,14 +508,17 @@ def main() -> int:
     from algodsp_tpu_torch import _build, convert, diff, streaming
     from algodsp_tpu_torch.chain import Chain
     from algodsp_tpu_torch.conv import fftconvolve
+    from algodsp_tpu_torch.effects.dynamics import Compressor, Topology, gate_hold
     from algodsp_tpu_torch.filters import BiquadChain, design
     from algodsp_tpu_torch.filters.biquad import sos_response
     from algodsp_tpu_torch.filters.design import butterworth_lp
+    from algodsp_tpu_torch.filters.design.rbj import highpass
     from algodsp_tpu_torch.filters.fir import FIRFilter
     from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
     from algodsp_tpu_torch.filters.weighting import WeightingType, weighting_chain
     from algodsp_tpu_torch.ops import biquad_cascade as bqmod
-    from algodsp_tpu_torch.ops import envscan, fdlconv, linrec
+    from algodsp_tpu_torch.ops import cascade as cascmod
+    from algodsp_tpu_torch.ops import dynfb, envscan, fdlconv, linrec
     from algodsp_tpu_torch.ops import moog as moog_ops
     from algodsp_tpu_torch.pipeline import (
         FoldedPipeline, flagship_params, folded_params)
@@ -527,6 +597,13 @@ def main() -> int:
                                          "over the recording K6's record)",
                              "wrapper": moog_ops.moog_zdf_reverse,
                              "errs": []},
+        "dynamics_feedback": {"route": "cuda",
+                              "source": "algodsp_tpu_torch/csrc/dynamics.cu",
+                              "replaces": "algodsp_tpu/effects/dynamics/"
+                                          "core.py:270 (DynamicsCore."
+                                          "_process_feedback, a lax.scan; no "
+                                          "Pallas)",
+                              "wrapper": dynfb.dynamics_feedback, "errs": []},
     }
     # K5's and K6's recording launches (counted among their launches)
     recorders = {"moog_ladder": moog_ops.moog_ladder,
@@ -1387,6 +1464,152 @@ def main() -> int:
     assert torch.equal(ef0, env0) and tr0.shape == (2, 0)
     assert tr0.device.type == "cuda"
 
+    # D1, the feedback dynamics detector (csrc/dynamics.cu), against its
+    # plain version on the card (the same step in PyTorch, launched step by
+    # step) and on the CPU: the dynamics graph's compressor, the same with
+    # feedback_ratio_scale, and a hard-knee 10:1 one with makeup; float32
+    # (>= 100 dB on y and the gain) and float64 (>= 200 dB); the chain
+    # block, C = 65 at T = 1 and 333, NaN and +-inf in x (non-finite
+    # where the plain version's); two calls bit-equal to one
+    kdyn = kernels["dynamics_feedback"]
+    fb_cfgs = {"graph": FB_GRAPH_KW,
+               "ratio-scaled": {**FB_GRAPH_KW, "feedback_ratio_scale": True},
+               "hard knee": {"threshold_db": -12.0, "ratio": 10.0,
+                             "knee_db": 0.0, "attack_ms": 1.0,
+                             "release_ms": 50.0, "makeup_gain_db": 3.0}}
+
+    def finite_cmp(ref, got):
+        """(SNR over the finite samples, non-finite samples alike, max|err|
+        over the finite samples)."""
+        ref, got = host(ref), host(got)
+        fin = np.isfinite(ref) & np.isfinite(got)
+        alike = (np.array_equal(np.isnan(ref), np.isnan(got))
+                 and np.array_equal(np.where(np.isinf(ref), ref, 0),
+                                    np.where(np.isinf(got), got, 0)))
+        err = float(np.max(np.abs(ref[fin] - got[fin]), initial=0.0))
+        return snr_db(ref[fin], got[fin]), alike, err
+
+    d1_rng = np.random.default_rng(11)
+    for label, cfg in fb_cfgs.items():
+        p_fb = Compressor(SR, topology=Topology.FEEDBACK,
+                          **cfg).core.feedback_params()
+        for dtype in (torch.float32, torch.float64):
+            bar = 100.0 if dtype == torch.float32 else 200.0
+            for c, t in ((CHAIN_CH, CHAIN_BLOCK), (65, 1), (65, 333)):
+                level = np.repeat(d1_rng.uniform(0.01, 2.0, (c, -(-t // 64))),
+                                  64, axis=1)[:, :t]
+                x_np = d1_rng.standard_normal((c, t)) * level
+                special = label == "hard knee" and t == 333
+                if special:
+                    x_np[3, 100], x_np[5, 7], x_np[6, 200] = (np.nan, np.inf,
+                                                              -np.inf)
+                xd = torch.as_tensor(x_np, dtype=dtype, device=dev)
+                e0, a0 = (torch.as_tensor(d1_rng.uniform(0.0, 1.0, c),
+                                          dtype=dtype, device=dev)
+                          for _ in range(2))
+                out = dynfb.dynamics_feedback(xd, e0, a0, p_fb)
+                ref_card = dynfb.dynamics_feedback_plain(xd, e0, a0, p_fb)
+                ref_cpu = dynfb.dynamics_feedback_plain(xd.cpu(), e0.cpu(),
+                                                        a0.cpu(), p_fb)
+                cmp = [finite_cmp(r, o) for r, o in zip(ref_card, out)]
+                cmp_cpu = [finite_cmp(r, o) for r, o in zip(ref_cpu, out)]
+                kdyn["errs"].append(max(e for _, _, e in cmp))
+                print(f"check dynamics_feedback {label} {dtype} C={c} T={t}"
+                      f"{' NaN/+-inf' if special else ''}: y SNR vs plain "
+                      f"{cmp[0][0]:.1f} dB (CPU plain {cmp_cpu[0][0]:.1f}), "
+                      f"gain {cmp[1][0]:.1f} dB (CPU {cmp_cpu[1][0]:.1f}), "
+                      f"env_final {cmp[2][0]:.1f} dB, max|err| "
+                      f"{max(e for _, _, e in cmp):.3e}, non-finite where the "
+                      f"plain version's {all(a for _, a, _ in cmp + cmp_cpu)}")
+                assert all(a for _, a, _ in cmp + cmp_cpu), label
+                assert min(v for v, _, _ in cmp[:2] + cmp_cpu[:2]) >= bar, label
+        xd = randn(CHAIN_CH, CHAIN_BLOCK)
+        zd = torch.zeros(CHAIN_CH, device=dev)
+        whole = dynfb.dynamics_feedback(xd, zd, zd, p_fb)
+        first = dynfb.dynamics_feedback(xd[:, :200].contiguous(), zd, zd, p_fb)
+        second = dynfb.dynamics_feedback(xd[:, 200:].contiguous(), first[2],
+                                         first[3], p_fb)
+        same = all(bits_equal(torch, torch.cat([a, b], dim=-1), w) for a, b, w
+                   in zip(first[:2], second[:2], whole[:2]))
+        print(f"check dynamics_feedback {label} two calls (200 + "
+              f"{CHAIN_BLOCK - 200}) vs one: bit-equal {same}")
+        assert same and bits_equal(torch, second[2], whole[2])
+
+    # Fault 6: the matrix engines' float32 products run in full float32
+    # whatever the caller set. A 60/90/120 Hz high-pass chain in float32
+    # through the blocked and whole-cascade engines, against float64, by
+    # default and under set_float32_matmul_precision("high") (TF32 on this
+    # card); the caller's setting is back after each call. Printed beside
+    # it, the same call with the pin taken out (what the engines did before)
+    hp_chain = BiquadChain(np.vstack([highpass(f, 0.707, SR)
+                                      for f in (60.0, 90.0, 120.0)]))
+    x6 = randn(CHANNELS, N_FLAGSHIP)
+    ref6 = host(hp_chain.process(x6.double(), mode="blocked"))
+    caller = torch.get_float32_matmul_precision()
+    for mode in ("blocked", "cascade"):
+        y_def = hp_chain.process(x6, mode=mode)
+        torch.set_float32_matmul_precision("high")
+        try:
+            y_high = hp_chain.process(x6, mode=mode)
+            kept = torch.get_float32_matmul_precision()
+            pins = (linrec.full_float32, cascmod.full_float32)
+            linrec.full_float32 = cascmod.full_float32 = contextlib.nullcontext
+            try:
+                y_unpinned = hp_chain.process(x6, mode=mode)
+            finally:
+                linrec.full_float32, cascmod.full_float32 = pins
+        finally:
+            torch.set_float32_matmul_precision(caller)
+        s_def, s_high = snr_db(ref6, host(y_def)), snr_db(ref6, host(y_high))
+        print(f"check fault 6 ({mode} engine, 60/90/120 Hz high-pass float32 "
+              f"{CHANNELS}x{N_FLAGSHIP}): vs float64 {s_def:.1f} dB by "
+              f"default, {s_high:.1f} dB under set_float32_matmul_precision("
+              f"'high') (bit-equal {bits_equal(torch, y_def, y_high)}; the "
+              f"caller's setting after the call {kept!r}, restored to "
+              f"{torch.get_float32_matmul_precision()!r}); without the pin "
+              f"{snr_db(ref6, host(y_unpinned)):.1f} dB")
+        assert kept == "high" and torch.get_float32_matmul_precision() == caller
+        assert bits_equal(torch, y_def, y_high) and s_high >= 85
+
+    # check cascade: the whole-cascade engine on the card against float64,
+    # streamed with its state, and the three engines' times (back-to-back
+    # calls, host included: the blocked engine uploads its tables each
+    # call) and accuracy behind the auto dispatch, for a slow-pole float32
+    # chain, a float64 chain and a chain over 64 runtime sections
+    disp_chains = {
+        "slow-pole float32 (60/90/120 Hz high-pass)": (hp_chain, torch.float32),
+        "float64 (10th-order Butterworth low-pass)": (cascade, torch.float64),
+        f"float32, {chain70.num_runtime_sections} runtime sections": (
+            chain70, torch.float32)}
+    disp_bars = {torch.float32: 85.0, torch.float64: 200.0}
+    for label, (chd, dtype) in disp_chains.items():
+        xd = randn(CHANNELS, N_FLAGSHIP).to(dtype)
+        ref = chd.process(xd.double().cpu(), mode="blocked").numpy()
+        row = {}
+        for mode in ("kernel", "blocked", "cascade"):
+            try:
+                y_m = chd.process(xd, mode=mode)
+            except (ValueError, RuntimeError) as exc:
+                row[mode] = f"n/a ({str(exc).split(':')[0][:60]})"
+                continue
+            row[mode] = (time_ms(torch, lambda m=mode: chd.process(xd, mode=m),
+                                 10), snr_db(ref, host(y_m)))
+        print(f"check cascade dispatch {label} {CHANNELS}x{N_FLAGSHIP}, auto "
+              f"takes {chd._auto_mode(xd)}: " + "; ".join(
+                  f"{m} {v}" if isinstance(v, str) else
+                  f"{m} {v[0]:.4f} ms, {v[1]:.1f} dB vs float64"
+                  for m, v in row.items()) + f" ({gpu})")
+        assert row["cascade"][1] >= disp_bars[dtype], label
+    st_c = hp_chain.init_state((CHANNELS,))
+    parts = []
+    for a, b in ((0, 16384), (16384, N_FLAGSHIP)):
+        st_c, y_p = hp_chain.process_stream(st_c, x6[:, a:b], mode="cascade")
+        parts.append(y_p)
+    s_stream = snr_db(ref6, host(torch.cat(parts, dim=-1)))
+    print(f"check cascade process_stream (two blocks, state carried) float32 "
+          f"{CHANNELS}x{N_FLAGSHIP}: {s_stream:.1f} dB vs float64")
+    assert s_stream >= 85
+
     # -- 3. flagship forward ---------------------------------------------------
     pipe = convert.flagship_from_numpy(flag)
     x_np = np.random.default_rng(1).standard_normal(
@@ -1412,7 +1635,8 @@ def main() -> int:
                         "moog_ladder": 0, "moog_zdf": 0,
                         "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
                         "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0,
-                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0}, launches
+                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0,
+                        "dynamics_feedback": 0}, launches
     assert env_counts["flagship"]["exact_walks"] == 0
 
     pipe_cpu = convert.flagship_from_numpy(flag, device="cpu")
@@ -1461,7 +1685,8 @@ def main() -> int:
                         "moog_ladder": CHAIN_BLOCKS, "moog_zdf": 0,
                         "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
                         "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0,
-                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0}, launches
+                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0,
+                        "dynamics_feedback": 0}, launches
     n8 = 8 * CHAIN_BLOCK
     chain_cpu = Chain(SR)
     chain_cpu.load_graph(raw)
@@ -1505,7 +1730,8 @@ def main() -> int:
                         "moog_ladder": 0, "moog_zdf": CHAIN_BLOCKS,
                         "envelope_adjoint": 0, "fdl_spectra_adjoint": 0,
                         "moog_ladder_adjoint": 0, "moog_zdf_adjoint": 0,
-                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0}, launches
+                        "moog_ladder_reverse": 0, "moog_zdf_reverse": 0,
+                        "dynamics_feedback": 0}, launches
     _, yz_cpu = streaming.scan_blocks(
         zdf.process, zdf.init_state((CHAIN_CH,), device="cpu"),
         torch.as_tensor(xz_np[:, :n8]), block_size=CHAIN_BLOCK)
@@ -2396,7 +2622,6 @@ def main() -> int:
     for name, k in kernels.items():
         k["by_path"]["moog_grad"] = mg_counts[name]
         k["by_path"]["moog_grad_over_budget"] = over_counts[name]
-        k["launches"] = sum(k["by_path"].values())
     rec_by_path["moog_grad"] = {n: mg_counts[n + ".record"]
                                 for n in recorders}
     rec_by_path["moog_grad_over_budget"] = {n: over_counts[n + ".record"]
@@ -2415,7 +2640,276 @@ def main() -> int:
     assert all(over_counts[name] > 0 for name in (
         "moog_ladder_adjoint", "moog_zdf_adjoint")), over_counts
 
-    # -- 9. kernel list ----------------------------------------------------------
+    # -- 9. dynamics: the dynamics family through the effect chain ----------------
+    # DYN_GRAPH and SPLIT_GRAPH streamed over 64 ch x 94 blocks of 512 through
+    # Chain.process_blocks, the launches of each block counted by kernel
+    # with every plain version's calls counted too (none may be called),
+    # held against the port's plain CPU path over 8 blocks; the gate's
+    # decisions against the CPU path's; ms per block and the real-time
+    # factor. Then the feedback Compressor called directly at the
+    # flagship's width in float32 and float64, and D1's times and bounds.
+    t_dyn = time.perf_counter()
+    dyn_plain = [(bqmod, "biquad_cascade_plain"),
+                 (envscan, "envelope_scan_plain"),
+                 (dynfb, "dynamics_feedback_plain")]
+    dyn_rng = np.random.default_rng(5)
+    n_chain = CHAIN_BLOCKS * CHAIN_BLOCK
+    n8 = 8 * CHAIN_BLOCK
+    # noise whose level steps every 1/8 s across the gate's, the
+    # compressors' and the expander's thresholds, with a 7 kHz tone for the
+    # de-esser where it is loud
+    dyn_level = np.repeat(dyn_rng.uniform(0.002, 1.5, (CHAIN_CH, -(-n_chain // 6000))),
+                          6000, axis=1)[:, :n_chain]
+    xs_np = (dyn_rng.standard_normal((CHAIN_CH, n_chain)) * dyn_level
+             + 0.2 * np.sin(2 * np.pi * 7000.0 * np.arange(n_chain) / SR)
+             * (dyn_level > 0.3)).astype(np.float32)
+    xs = torch.as_tensor(xs_np, device=dev)
+    dyn_ms = {}
+    for path, graph in (("dyn_chain", DYN_GRAPH), ("split_chain", SPLIT_GRAPH)):
+        raw_d = json.dumps(graph)
+        chd = Chain(SR)
+        report = chd.load_graph(raw_d)
+        print(f"{path} fusion report: {report}")
+        assert report == [], report
+        st_d = chd.init_state((CHAIN_CH,))
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        k4.reset_counts()
+        with plain_calls(dyn_plain) as plain_n:
+            _, yd = chd.process_blocks(st_d, xs)
+            torch.cuda.synchronize()
+        launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+        for name, k in kernels.items():
+            k["by_path"][path] = launches[name]
+        per_block = {name: v / CHAIN_BLOCKS for name, v in launches.items() if v}
+        env_counts[path] = k4.counts()
+        print(f"{path} launches per block of {CHAIN_CH}x{CHAIN_BLOCK} over "
+              f"{CHAIN_BLOCKS} blocks: {json.dumps(per_block)}; plain versions "
+              f"called {sum(plain_n.values())} times; envelope counts "
+              f"{json.dumps(env_counts[path])}")
+        assert not any(plain_n.values()), plain_n
+        assert all(v % CHAIN_BLOCKS == 0 for v in launches.values()), launches
+        assert launches["biquad_cascade"] > 0 and launches["envelope"] > 0
+        assert launches["dynamics_feedback"] == (
+            CHAIN_BLOCKS if path == "dyn_chain" else 0), launches
+        assert set(per_block) <= {"biquad_cascade", "envelope",
+                                  "dynamics_feedback"}, per_block
+        assert env_counts[path]["exact_walks"] == 0
+        chd_cpu = Chain(SR)
+        chd_cpu.load_graph(raw_d)
+        t0 = time.perf_counter()
+        _, yd_cpu = chd_cpu.process_blocks(
+            chd_cpu.init_state((CHAIN_CH,), device="cpu"),
+            torch.as_tensor(xs_np[:, :n8]))
+        cpu_s = time.perf_counter() - t0
+        yd_h = host(yd)
+        assert yd_h.shape == (CHAIN_CH, n_chain) and np.all(np.isfinite(yd_h))
+        snr = snr_db(yd_cpu.numpy(), yd_h[:, :n8])
+        print(f"{path} {CHAIN_CH}x{n8} (8 blocks) vs plain CPU path: SNR "
+              f"{snr:.1f} dB (plain CPU path {cpu_s:.2f} s)")
+        assert snr >= 100
+        dyn_ms[path] = time_ms(torch, lambda: chd.process_blocks(st_d, xs),
+                               reps=3, warmup=1) / CHAIN_BLOCKS
+        print(f"time {path} per block ({CHAIN_CH}x{CHAIN_BLOCK}, mean over 3 x "
+              f"{CHAIN_BLOCKS} blocks of process_blocks): {dyn_ms[path]:.4f} "
+              f"ms, real-time factor {CHAIN_BLOCK / SR * 1e3 / dyn_ms[path]:.2f}"
+              f" ({gpu})")
+        parts = kernel_breakdown(
+            torch, lambda: chd.process(st_d, xs[:, :CHAIN_BLOCK]), 10,
+            ("biquad_", "envelope_", "dynamics_"))
+        print(f"time {path} kernels per block by launch (profiler, device ms): "
+              + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
+                 or "not measured")
+              + (f"; sum {sum(parts.values()):.4f} ms of {dyn_ms[path]:.4f} "
+                 f"ms wall" if parts else "") + f" ({gpu})")
+        # host time by node: each node's process between two
+        # synchronizations, over 8 blocks
+        node_ms = {nid: 0.0 for nid in chd.runtimes}
+        untimed = {nid: rt.process for nid, rt in chd.runtimes.items()}
+
+        def timed(nid, fn):
+            def run(st_n, x_n, sc_n):
+                torch.cuda.synchronize()
+                t_n = time.perf_counter()
+                out = fn(st_n, x_n, sc_n)
+                torch.cuda.synchronize()
+                node_ms[nid] += (time.perf_counter() - t_n) * 1e3 / 8
+                return out
+            return run
+
+        for nid, rt in chd.runtimes.items():
+            rt.process = timed(nid, untimed[nid])
+        try:
+            chd.process_blocks(st_d, xs[:, :n8])
+        finally:
+            for nid, rt in chd.runtimes.items():
+                rt.process = untimed[nid]
+        print(f"time {path} per node a block (synchronized around each node, "
+              f"8 blocks): " + ", ".join(f"{nid} {t:.4f} ms"
+                                        for nid, t in node_ms.items())
+              + f" ({gpu})")
+        if path == "dyn_chain":
+            # the same chain with auto dispatch keeping float32 slow-pole
+            # chains on the blocked engine (the rule the whole-cascade
+            # engine replaced for them): here the 250 Hz crossover
+            auto_rule = BiquadChain._auto_mode
+            BiquadChain._auto_mode = lambda self, x_a: (
+                "kernel" if x_a.dtype == torch.float32
+                and not self.has_slow_poles
+                and self.num_runtime_sections <= bqmod.MAX_SECTIONS
+                else "blocked")
+            try:
+                blocked_ms = time_ms(
+                    torch, lambda: chd.process_blocks(st_d, xs), reps=3,
+                    warmup=1) / CHAIN_BLOCKS
+            finally:
+                BiquadChain._auto_mode = auto_rule
+            print(f"time dyn_chain per block with slow-pole float32 chains on "
+                  f"the blocked engine: {blocked_ms:.4f} ms, real-time factor "
+                  f"{CHAIN_BLOCK / SR * 1e3 / blocked_ms:.2f} ({gpu})")
+        if path != "dyn_chain":
+            # the transient shaper alone: its envelope runs on K4, whose
+            # selection fixpoint stops within 4 ulps, and that error
+            # enters its gain through delta / (env + 1e-9)
+            ts = chd.runtimes["tr"].effect
+            _, y_ts = streaming.scan_blocks(
+                ts.process, ts.init_state((CHAIN_CH,)), xs[:, :n8],
+                block_size=CHAIN_BLOCK)
+            _, y_ts_cpu = streaming.scan_blocks(
+                ts.process, ts.init_state((CHAIN_CH,), device="cpu"),
+                torch.as_tensor(xs_np[:, :n8]), block_size=CHAIN_BLOCK)
+            g_ts, g_ts_cpu = host(y_ts) / xs_np[:, :n8], y_ts_cpu.numpy() / xs_np[:, :n8]
+            print(f"split_chain transient shaper alone {CHAIN_CH}x{n8} through "
+                  f"K4 vs the plain CPU path: y SNR {snr_db(y_ts_cpu.numpy(), host(y_ts)):.1f}"
+                  f" dB, gain SNR {snr_db(g_ts_cpu, g_ts):.1f} dB, max |gain "
+                  f"err| {float(np.max(np.abs(g_ts - g_ts_cpu))):.3e}")
+            assert snr_db(y_ts_cpu.numpy(), host(y_ts)) >= 100
+            continue
+        # The gate's reset (expansion gain >= 1) is a discrete decision: a
+        # level within ulps of the knee's edge can flip it between the card
+        # (K4 stops within 4 ulps) and the CPU path, and a flip moves the
+        # hold window. Count the samples whose gated gain is unity on one
+        # side only, then rerun the CPU side on the card's detector levels.
+        gate = chd.runtimes["gate"].effect
+
+        def gate_gains(device, levels=None):
+            st_g = gate.init_state((CHAIN_CH,), torch.float32, device)
+            gains, seen = [], []
+            for b in range(8):
+                xb = torch.as_tensor(xs_np[:, b * CHAIN_BLOCK:(b + 1) * CHAIN_BLOCK],
+                                     device=device)
+                st_n, level = gate.core.detector(st_g, xb)
+                if levels is not None:
+                    level = levels[b].to(device)
+                g_b, hold = gate_hold(gate._gain(level), st_g["hold"],
+                                      gate.hold_samples)
+                st_g = {**st_n, "hold": hold}
+                gains.append(host(g_b))
+                seen.append(level)
+            return np.concatenate(gains, axis=-1), seen
+
+        g_card, lv_card = gate_gains(dev)
+        g_cpu, _ = gate_gains("cpu")
+        g_given, _ = gate_gains("cpu", lv_card)
+        flips = int(np.sum((g_card == 1.0) != (g_cpu == 1.0)))
+        flips_given = int(np.sum((g_card == 1.0) != (g_given == 1.0)))
+        print(f"dyn_chain gate decisions over 8 blocks ({CHAIN_CH}x{n8} "
+              f"samples, {int(np.sum(g_card == 1.0))} at unity gain): differ "
+              f"from the CPU path at {flips}; given the card's detector levels "
+              f"at {flips_given}")
+        assert flips_given == 0
+
+    # the feedback Compressor called directly at the flagship's width:
+    # float32 and float64, one D1 launch a call, against the CPU path
+    direct = {}
+    for dtype in (torch.float32, torch.float64):
+        comp_fb = Compressor(SR, topology=Topology.FEEDBACK, **FB_GRAPH_KW)
+        x_fb_np = (np.random.default_rng(6).standard_normal((CHANNELS, N_FLAGSHIP))
+                   * np.repeat(np.random.default_rng(7).uniform(
+                       0.01, 2.0, (CHANNELS, 47)), 1024, axis=1)[:, :N_FLAGSHIP])
+        x_fb = torch.as_tensor(x_fb_np, dtype=dtype, device=dev)
+        st_fb = comp_fb.init_state((CHANNELS,), dtype)
+        dynfb.dynamics_feedback.launches = 0
+        _, y_fb = comp_fb.process(st_fb, x_fb)
+        torch.cuda.synchronize()
+        n_launch = dynfb.dynamics_feedback.launches
+        kdyn["by_path"][f"feedback_direct_{str(dtype)[6:]}"] = n_launch
+        _, y_fb_cpu = comp_fb.process(
+            comp_fb.init_state((CHANNELS,), dtype, "cpu"), x_fb.cpu())
+        s_fb = snr_db(y_fb_cpu.numpy(), host(y_fb))
+        p_fb = comp_fb.core.feedback_params()
+        zf = torch.zeros(CHANNELS, dtype=dtype, device=dev)
+        call = lambda: dynfb.dynamics_feedback(x_fb, zf, zf, p_fb)
+        direct[dtype] = (graph_ms(torch, call, 5), time_ms(torch, call, 5))
+        print(f"feedback Compressor {dtype} {CHANNELS}x{N_FLAGSHIP} on the card:"
+              f" D1 launches {n_launch}, SNR vs the CPU path {s_fb:.1f} dB")
+        assert n_launch == 1 and s_fb >= (100 if dtype == torch.float32 else 200)
+
+    # D1's time beside its bounds: the bytes (x in, y and the gain out,
+    # four (C,) states) and operations at the card's rates, and the chain
+    # bound of its dependent walk, T steps of a step's cycles (one thread,
+    # clock64, csrc/dynamics.cu::dynamics_latency_kernel) at the SM clock
+    # of a one-thread kernel
+    mhz = dynfb.sm_clock_mhz()
+    p_graph = Compressor(SR, topology=Topology.FEEDBACK,
+                         **FB_GRAPH_KW).core.feedback_params()
+    cycles = {dt: dynfb.step_cycles(p_graph, dt)
+              for dt in (torch.float32, torch.float64)}
+    xg1 = randn(CHAIN_CH, CHAIN_BLOCK)
+    zg1 = torch.zeros(CHAIN_CH, device=dev)
+    d1_call = lambda: dynfb.dynamics_feedback(xg1, zg1, zg1, p_graph)
+    kdyn["ms_at"] = (f"per dyn_chain block, {CHAIN_CH} x {CHAIN_BLOCK} float32 "
+                     f"(the graph's feedback compressor)")
+    kdyn["ms"] = graph_ms(torch, d1_call, 20)
+    kdyn["call_ms"] = time_ms(torch, d1_call, 20)
+    kdyn["plain_ms"] = time_ms(torch, lambda: dynfb.dynamics_feedback_plain(
+        xg1, zg1, zg1, p_graph), 1, warmup=0)
+
+    def d1_work(c, t, itemsize):
+        return (3.0 * itemsize * c * t + 4.0 * itemsize * c,
+                float(D1_STEP_OPS * c * t))
+
+    kdyn["bound_ms"], kdyn["bound_by"] = bound(*d1_work(CHAIN_CH, CHAIN_BLOCK, 4))
+    kdyn["library_ms"] = None
+    kdyn["step_cycles"] = {str(dt)[6:]: cyc for dt, cyc in cycles.items()}
+    kdyn["sm_mhz"] = mhz
+    kdyn["chain_bound_ms"] = {
+        "chain block float32": CHAIN_BLOCK * cycles[torch.float32] / mhz * 1e-3,
+        "direct float32": N_FLAGSHIP * cycles[torch.float32] / mhz * 1e-3,
+        "direct float64": N_FLAGSHIP * cycles[torch.float64] / mhz * 1e-3}
+    kdyn["ms_by_shape"] = {"chain block float32": kdyn["ms"],
+                           "direct float32": direct[torch.float32][0],
+                           "direct float64": direct[torch.float64][0]}
+    b_direct = {dt: bound(*d1_work(CHANNELS, N_FLAGSHIP, 4 if dt == torch.float32
+                                   else 8))[0] for dt in direct}
+    print(f"time dynamics_feedback {kdyn['ms_at']}: kernel {kdyn['ms']:.4f} ms "
+          f"(graph replay; {kdyn['call_ms']:.4f} ms as back-to-back calls), "
+          f"bound {kdyn['bound_ms']:.6f} ms ({kdyn['bound_by']}), chain bound "
+          f"{kdyn['chain_bound_ms']['chain block float32']:.4f} ms "
+          f"({CHAIN_BLOCK} steps x {cycles[torch.float32]:.1f} cycles / "
+          f"{mhz:.0f} MHz, {100 * kdyn['chain_bound_ms']['chain block float32'] / kdyn['ms']:.0f}%"
+          f" of the kernel), plain {kdyn['plain_ms']:.4f} ms, library none "
+          f"({gpu})")
+    for dt, (g_ms, c_ms) in direct.items():
+        key = f"direct {str(dt)[6:]}"
+        print(f"time dynamics_feedback direct {CHANNELS}x{N_FLAGSHIP} {dt}: "
+              f"kernel {g_ms:.4f} ms (graph replay; {c_ms:.4f} ms as "
+              f"back-to-back calls), byte bound {b_direct[dt]:.6f} ms, chain "
+              f"bound {kdyn['chain_bound_ms'][key]:.4f} ms ({N_FLAGSHIP} steps "
+              f"x {cycles[dt]:.1f} cycles, "
+              f"{100 * kdyn['chain_bound_ms'][key] / g_ms:.0f}% of the kernel)"
+              f" ({gpu})")
+    kdyn["counts_by_path"] = {p: env_counts[p] for p in ("dyn_chain",
+                                                          "split_chain")}
+    for name, k in kernels.items():
+        k["launches"] = sum(k["by_path"].values())
+    print(f"dynamics launches by path: "
+          f"{json.dumps({p: {n: k['by_path'].get(p, 0) for n, k in kernels.items() if k['by_path'].get(p, 0)} for p in ('dyn_chain', 'split_chain', 'feedback_direct_float32', 'feedback_direct_float64')})}"
+          f"; phase {time.perf_counter() - t_dyn:.2f} s")
+    assert all(kernels[n]["by_path"]["dyn_chain"] > 0 for n in (
+        "biquad_cascade", "envelope", "dynamics_feedback"))
+
+    # -- 10. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],
@@ -2428,7 +2922,8 @@ def main() -> int:
                                    "counts_by_path", "dv_fft_ms",
                                    "scratch_bytes", "record_bytes",
                                    "record_ms", "record_bound_ms",
-                                   "record_launches_by_path")
+                                   "record_launches_by_path",
+                                   "chain_bound_ms", "step_cycles", "sm_mhz")
                    if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))

@@ -18,6 +18,7 @@ from algodsp_tpu.effects.dynamics import Compressor as JCompressor
 from algodsp_tpu.effects.dynamics import compression_gain as j_gain
 from algodsp_tpu.effects.dynamics import downward_expansion_gain as j_exp
 from algodsp_tpu.effects.dynamics.core import DetectorMode as JMode
+from algodsp_tpu.effects.dynamics.core import Topology as JTopology
 from algodsp_tpu.ops.envscan import envelope_scan as j_envelope
 from algodsp_tpu_torch import convert
 from algodsp_tpu_torch.effects.dynamics import (
@@ -268,9 +269,14 @@ def test_metrics_feedback_and_output_level():
     mags = np.array([0.01, 0.1, 1.0, 4.0], np.float32)
     np.testing.assert_allclose(tc.calculate_output_level(mags).numpy(),
                                np.asarray(jc.calculate_output_level(mags)), rtol=1e-6)
+    # the feedback topology is ported (D1): its state carries the
+    # previous gain and output magnitude, and it matches the JAX scan
     fb = Compressor(SR, topology=Topology.FEEDBACK)
-    with pytest.raises(NotImplementedError):
-        fb.init_state((C,), device="cpu")
-    with pytest.raises(NotImplementedError):
-        fb.process({}, x)
+    jfb = JCompressor(SR, topology=JTopology.FEEDBACK)
+    st_fb = fb.init_state((C,), device="cpu")
+    assert set(st_fb) == set(jfb.init_state((C,))) == {
+        "envelope", "prev_gain", "prev_abs"}
+    _, y_fb = fb.process(st_fb, x)
+    _, y_jfb = jfb.process(jfb.init_state((C,)), jnp.asarray(x.numpy()))
+    assert snr_db(np.asarray(y_jfb), y_fb.numpy()) >= 100
     assert Compressor(SR, detector_mode=DetectorMode.RMS).core.rms_window == 1440

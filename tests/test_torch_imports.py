@@ -7,8 +7,8 @@
   never fall back to their plain versions. The cascade (zero state),
   envelope, FDL and Moog calls go through their autograd Functions; the
   calls with no backward on the card (the explicit-state cascade, the raw
-  envelope kernel) refuse a tensor that requires grad instead of cutting
-  the gradient.
+  envelope kernel, the feedback dynamics detector D1) refuse a tensor
+  that requires grad instead of cutting the gradient.
 """
 
 import ast
@@ -27,7 +27,7 @@ from algodsp_tpu_torch.conv import PartitionedConvolver, conv
 from algodsp_tpu_torch.effects.dynamics import Compressor
 from algodsp_tpu_torch.filters import BiquadChain
 from algodsp_tpu_torch.filters.moog import MoogFilter
-from algodsp_tpu_torch.ops import biquad_cascade as bq, envscan, fdlconv, moog
+from algodsp_tpu_torch.ops import biquad_cascade as bq, dynfb, envscan, fdlconv, moog
 from algodsp_tpu_torch.pipeline import flagship_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +44,9 @@ def _port_modules():
 
 def test_import_leaves_jax_out():
     modules = list(_port_modules())
-    assert "algodsp_tpu_torch.diff" in modules
+    assert {"algodsp_tpu_torch.diff", "algodsp_tpu_torch.ops.cascade",
+            "algodsp_tpu_torch.ops.dynfb", "algodsp_tpu_torch.filters.crossover",
+            "algodsp_tpu_torch.effects.dynamics.processors"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -128,7 +130,12 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(fdlconv, "fdl_conv_plain", plain_called)
     monkeypatch.setattr(moog, "moog_ladder_plain", plain_called)
     monkeypatch.setattr(moog, "moog_zdf_plain", plain_called)
+    monkeypatch.setattr(dynfb, "dynamics_feedback_plain", plain_called)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
+    fb = Compressor(48000.0).core.feedback_params()
+    with pytest.raises(RuntimeError, match="no kernel library dynamics"):
+        dynfb.dynamics_feedback(_FakeCuda(2, 256), _FakeCuda(2), _FakeCuda(2),
+                                fb)
     with pytest.raises(RuntimeError, match="no kernel library biquad_cascade"):
         bq.biquad_cascade(_FakeCuda(2, 256), sos)
     with pytest.raises(RuntimeError, match="no kernel library envelope"):
@@ -142,7 +149,8 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no kernel library moog"):
         moog.moog_zdf(_FakeCuda(2, 256), _FakeCuda(8, 2), params)
     for wrapper in (bq.biquad_cascade, envscan.envelope_scan_kernel,
-                    fdlconv.fdl_conv, moog.moog_ladder, moog.moog_zdf):
+                    fdlconv.fdl_conv, moog.moog_ladder, moog.moog_zdf,
+                    dynfb.dynamics_feedback):
         assert isinstance(wrapper.launches, int)
 
 
@@ -167,6 +175,7 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
     g = lambda *shape: _FakeCuda(*shape, requires_grad=True)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
     params = [0.1, 0.2, 0.5, 1.0, 1.0]
+    fb = Compressor(48000.0).core.feedback_params()
     refused = [
         lambda: bq.biquad_cascade(g(2, 256), sos, state=_FakeCuda(2, 1, 4)),
         lambda: bq.biquad_cascade(_FakeCuda(2, 256), sos,
@@ -174,10 +183,17 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
         lambda: envscan.envelope_scan_kernel(g(2, 256), None, None, None),
         lambda: envscan.envelope_scan_kernel(_FakeCuda(2, 256), None,
                                              g(2), None),
+        lambda: dynfb.dynamics_feedback(g(2, 256), _FakeCuda(2), _FakeCuda(2),
+                                        fb),
+        lambda: dynfb.dynamics_feedback(_FakeCuda(2, 256), g(2), _FakeCuda(2),
+                                        fb),
     ]
     for call in refused:
         with pytest.raises(NotImplementedError, match="no backward on the card"):
             call()
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="no kernel library dynamics"):
+            dynfb.dynamics_feedback(g(2, 256), _FakeCuda(2), _FakeCuda(2), fb)
     launched = [
         ("biquad_cascade", lambda: bq.biquad_cascade(g(2, 256), sos)),
         ("fdlconv", lambda: fdlconv.fdl_conv(g(2, 256), _FakeCuda(3, 129, 2),
@@ -219,6 +235,10 @@ def test_wrappers_refuse_other_devices():
     for wrapper in (moog.moog_ladder, moog.moog_zdf):
         with pytest.raises(ValueError):
             wrapper(meta, torch.empty((8, 2), device="meta"), [1.0] * 5)
+    with pytest.raises(ValueError):
+        dynfb.dynamics_feedback(meta, torch.empty(2, device="meta"),
+                                torch.empty(2, device="meta"),
+                                Compressor(48000.0).core.feedback_params())
 
 
 def test_build_without_nvcc_raises(monkeypatch):
