@@ -23,11 +23,16 @@ SWEEP_TOL. Slow complex-pole sections carry in a per-section modal
 basis (V), as in `ops/linrec.py`.
 
 The kernels and the sweep matrices are host-side float64 NumPy, the
-same as the reference's. The runtime is plain `torch.matmul`: the
+same as the reference's; they go to the device once per (cascade,
+gain, block count, type, device). The runtime is `torch.matmul` for
+one cascade and a band-batched `torch.einsum` for a bank: the
 reference computes these products outside any Pallas kernel
 (`jnp.dot` / `jnp.einsum` at `Precision.HIGHEST`), and here they run
 under `linrec.full_float32()`, so float32 stays full float32 whatever
-the caller set. The banded variant waits for `filters/bank.py`.
+the caller set. One engine serves both entry points:
+`cascade_apply_blocked_banded` runs a different cascade in every row
+of a band axis (`filters/bank.py`), and `cascade_apply_blocked` is it
+with one band.
 """
 
 from __future__ import annotations
@@ -164,47 +169,108 @@ def cascade_kernels(sos, block: int = 128) -> CascadeKernels:
     return _kernels_cached(sos.tobytes(), sos.shape[0], int(block))
 
 
+@lru_cache(maxsize=64)
+def _kernels_banded_cached(sos_key: bytes, n_bands: int, s_count: int,
+                           block: int) -> CascadeKernels:
+    """Per-band cascade kernels stacked on a leading band axis."""
+    sos = np.frombuffer(sos_key, dtype=np.float64).reshape(
+        n_bands, s_count, 5)
+    ks = [_kernels_cached(np.ascontiguousarray(sos[b]).tobytes(),
+                          s_count, block) for b in range(n_bands)]
+    return CascadeKernels(
+        Lc=np.stack([k.Lc for k in ks]), Win=np.stack([k.Win for k in ks]),
+        Cout=np.stack([k.Cout for k in ks]), T=np.stack([k.T for k in ks]),
+        V=np.stack([k.V for k in ks]), Vinv=np.stack([k.Vinv for k in ks]),
+        modal=any(k.modal for k in ks), block=block, d=ks[0].d)
+
+
 @lru_cache(maxsize=256)
-def _sweep_mats(sos_key: bytes, s_count: int, block: int, k_blocks: int):
-    """Hillis-Steele combine matrices T^(2^l) for l = 0.., truncated
-    once the matrix norm falls below SWEEP_TOL."""
-    kern = _kernels_cached(sos_key, s_count, block)
+def _sweep_mats_banded(sos_key: bytes, n_bands: int, s_count: int,
+                       block: int, k_blocks: int):
+    """Hillis-Steele combine matrices T^(2^l) for l = 0.., (bands, d, d)
+    each, truncated once every band's falls below SWEEP_TOL."""
+    kern = _kernels_banded_cached(sos_key, n_bands, s_count, block)
     mats = []
-    M = kern.T
+    M = kern.T                     # (bands, d, d)
     shift = 1
     while shift < k_blocks:
         if np.max(np.abs(M)) < SWEEP_TOL:
             break
         mats.append((shift, M.copy()))
-        M = M @ M
+        M = M @ M                  # a product a band
         shift *= 2
     return tuple(mats)
 
 
-@lru_cache(maxsize=64)
-def _dot_consts(sos_key: bytes, s_count: int, block: int, gain: float):
-    """Pre-transposed float64 weights for the flattened 2-D products,
-    the input gain folded into the input-drive weights (Lc, Win):
-    Lc @ (g x) + Cout @ s == (g Lc) @ x + Cout @ s."""
-    kern = _kernels_cached(sos_key, s_count, block)
-    return (np.ascontiguousarray(gain * kern.Lc.T),
-            np.ascontiguousarray(gain * kern.Win.T),
-            np.ascontiguousarray(kern.Cout.T))
-
-
 @lru_cache(maxsize=256)
-def _device_consts(sos_key: bytes, s_count: int, block: int, gain: float,
-                   k_blocks: int, dtype: torch.dtype, device: torch.device):
-    """The engine's weights and sweep matrices as tensors of `dtype` on
-    `device`, made once per (cascade, gain, block count, type, device)."""
-    kern = _kernels_cached(sos_key, s_count, block)
-    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                     device=device)
-    LcT, WinT, CoutT = _dot_consts(sos_key, s_count, block, gain)
-    sweeps = tuple((shift, as_t(M.T)) for shift, M in
-                   _sweep_mats(sos_key, s_count, block, k_blocks))
-    return (as_t(LcT), as_t(WinT), as_t(CoutT), as_t(kern.T.T),
-            as_t(kern.Vinv.T), as_t(kern.V.T), sweeps)
+def _device_consts_banded(sos_key: bytes, n_bands: int, s_count: int,
+                          block: int, gain: float, k_blocks: int,
+                          dtype: torch.dtype, device: torch.device):
+    """The engine's weights and sweep matrices, each transposed per band
+    to (bands, cols, rows) so that a row vector times it is the product,
+    as tensors of `dtype` on `device`, made once per (bank, gain, block
+    count, type, device). The input gain is folded into the input-drive
+    weights: Lc @ (g x) + Cout @ s == (g Lc) @ x + Cout @ s."""
+    kern = _kernels_banded_cached(sos_key, n_bands, s_count, block)
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(np.swapaxes(a, -1, -2)),
+                                     dtype=dtype, device=device)
+    sweeps = tuple((shift, as_t(M)) for shift, M in _sweep_mats_banded(
+        sos_key, n_bands, s_count, block, k_blocks))
+    return (as_t(gain * kern.Lc), as_t(gain * kern.Win), as_t(kern.Cout),
+            as_t(kern.T), as_t(kern.Vinv), as_t(kern.V), sweeps)
+
+
+def _apply_banded(xb, sos, block, s0, return_state, gain):
+    """The engine: xb (..., bands, N), sos (bands, S, 5) float64."""
+    nb, S = sos.shape[:2]
+    kern = _kernels_banded_cached(sos.tobytes(), nb, S, int(block))
+    B, d = kern.block, kern.d
+    if xb.shape[-2] != nb:
+        raise ValueError(f"band axis {xb.shape[-2]} != {nb}")
+    n = xb.shape[-1]
+    if n % B:
+        raise ValueError(f"length {n} not a multiple of block {B}")
+    K = n // B
+    Lc, Win, Cout, T, Vinv, V, sweeps = _device_consts_banded(
+        sos.tobytes(), nb, S, int(block), float(gain), K, xb.dtype, xb.device)
+    if nb == 1:
+        # one cascade: plain products with its weights, which fold the
+        # leading dims into one product where that needs no copy
+        mm = lambda a, W: a @ W[0]
+        mv = lambda M, v: v @ M[0]
+    else:
+        # the band axis is the products' batch: einsum folds the leading
+        # dims and the block axis into the rows of one batched product a
+        # band, where a broadcast matmul would copy every weight for
+        # every channel
+        mm = lambda a, W: torch.einsum("...skb,sbc->...skc", a, W)
+        mv = lambda M, v: torch.einsum("sji,...sj->...si", M, v)
+
+    with full_float32():
+        xr = xb.reshape(xb.shape[:-1] + (K, B))
+        u = mm(xr, Lc)                                 # (..., bands, K, B)
+        w = mm(xr, Win)                                # (..., bands, K, d)
+        if s0 is None:
+            s0 = xb.new_zeros(xb.shape[:-1] + (d,))
+        else:
+            s0 = torch.broadcast_to(s0.to(xb.dtype), xb.shape[:-1] + (d,))
+            if kern.modal:                             # direct -> modal basis
+                s0 = mv(Vinv, s0)
+            w = torch.cat([w[..., :1, :] + mv(T, s0)[..., None, :],
+                           w[..., 1:, :]], dim=-2)
+        # inclusive scan e_k = sum_{j<=k} T^{k-j} w_j, constant-matrix sweeps
+        for shift, M in sweeps:
+            shifted = mm(w[..., :-shift, :], M)
+            w = torch.cat([w[..., :shift, :], w[..., shift:, :] + shifted],
+                          dim=-2)
+        entries = torch.cat([s0[..., None, :], w[..., :-1, :]], dim=-2)
+        y = (u + mm(entries, Cout)).reshape(xb.shape[:-1] + (n,))
+        if not return_state:
+            return y
+        s_fin = w[..., -1, :]
+        if kern.modal:                                 # back to the direct basis
+            s_fin = mv(V, s_fin)
+    return y, s_fin
 
 
 def cascade_apply_blocked(x, sos, *, block: int = 128, s0=None,
@@ -215,49 +281,36 @@ def cascade_apply_blocked(x, sos, *, block: int = 128, s0=None,
     entry state in the direct compact basis (zeros if None); gain: the
     input gain, folded into the weights. Returns y or (y, s_final), in
     x's type and on its device; every product runs in full float32
-    under `full_float32()` (float64 stays float64).
+    under `full_float32()` (float64 stays float64). The banded engine
+    with one band.
     """
     sos = np.ascontiguousarray(np.asarray(sos, dtype=np.float64))
-    kern = cascade_kernels(sos, block)
-    B, d = kern.block, kern.d
-    n = x.shape[-1]
-    if n % B:
-        raise ValueError(f"length {n} not a multiple of block {B}")
-    K = n // B
-    LcT, WinT, CoutT, TT, VinvT, VT, sweeps = _device_consts(
-        sos.tobytes(), sos.shape[0], int(block), float(gain), K, x.dtype,
-        x.device)
+    if sos.ndim != 2 or sos.shape[1] != 5:
+        raise ValueError(f"sos must be (S, 5), got {sos.shape}")
+    out = _apply_banded(x[..., None, :], sos[None], block,
+                        None if s0 is None else s0[..., None, :],
+                        return_state, gain)
+    if not return_state:
+        return out[..., 0, :]
+    return out[0][..., 0, :], out[1][..., 0, :]
 
-    def dot(a, W):
-        # flattened 2-D product against a pre-transposed weight
-        return torch.matmul(a.reshape(-1, a.shape[-1]), W).reshape(
-            a.shape[:-1] + (W.shape[-1],))
 
-    with full_float32():
-        xb = x.reshape(x.shape[:-1] + (K, B))
-        u = dot(xb, LcT)                               # (..., K, B) zero-state out
-        w = dot(xb, WinT)                              # (..., K, d) zero-state end
-        if s0 is None:
-            s0 = x.new_zeros(x.shape[:-1] + (d,))
-        else:
-            s0 = torch.broadcast_to(s0.to(x.dtype), x.shape[:-1] + (d,))
-            if kern.modal:                             # direct -> modal basis
-                s0 = s0 @ VinvT
-            w = torch.cat([w[..., :1, :] + (s0 @ TT)[..., None, :],
-                           w[..., 1:, :]], dim=-2)
-        # inclusive scan e_k = sum_{j<=k} T^{k-j} w_j, constant-matrix sweeps
-        for shift, MT in sweeps:
-            shifted = w[..., :-shift, :] @ MT
-            w = torch.cat([w[..., :shift, :], w[..., shift:, :] + shifted],
-                          dim=-2)
-        entries = torch.cat([s0[..., None, :], w[..., :-1, :]], dim=-2)
-        y = (u + dot(entries, CoutT)).reshape(x.shape[:-1] + (n,))
-        if not return_state:
-            return y
-        s_fin = w[..., -1, :]
-        if kern.modal:                                 # back to the direct basis
-            s_fin = s_fin @ VT
-    return y, s_fin
+def cascade_apply_blocked_banded(xb, sos, *, block: int = 128, s0=None,
+                                 return_state: bool = False):
+    """Banded whole-cascade engine: band row b runs its own cascade.
+
+    xb: (..., bands, N) with N a multiple of `block`; sos: (bands, S, 5);
+    s0: optional (..., bands, d) entry state in the direct compact
+    basis. One batched product per kernel with the band axis as the
+    batch replaces S sequential banded stages (filter banks, vocoder)
+    by a single Toeplitz pass per block. Returns y or (y, s_final) in
+    xb's type on its device; the products run in full float32 under
+    `full_float32()`.
+    """
+    sos = np.ascontiguousarray(np.asarray(sos, dtype=np.float64))
+    if sos.ndim != 3 or sos.shape[2] != 5:
+        raise ValueError(f"banded sos must be (bands, S, 5), got {sos.shape}")
+    return _apply_banded(xb, sos, block, s0, return_state, 1.0)
 
 
 def chain_state_to_compact(state):

@@ -29,6 +29,10 @@ float32 matmuls on 10-bit TF32 on the card, "medium" on bfloat16 in
 oneDNN on the CPU), they run in full float32, as the reference pins
 `Precision.HIGHEST`, and the caller's setting is restored afterwards.
 
+`ar2_apply_blocked_banded` runs a different section in every row of a
+band axis (the filter bank's per-section path), the band axis as the
+products' batch.
+
 Streaming state is (x_{n-1}, x_{n-2}, y_{n-1}, y_{n-2}) per section.
 """
 
@@ -96,7 +100,7 @@ def full_float32():
             m.fp32_precision = v
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class AR2Kernels:
     """Host-precomputed block kernels for a batch of S second-order
     AR sections (float64 NumPy).
@@ -110,7 +114,10 @@ class AR2Kernels:
     responses. The direct basis (S = I) keeps G entries and p/q rows of
     magnitude peak(h) (~80 for a 60 Hz filter at 48 kHz) that cancel in
     f32, costing 30-60 dB; the modal basis removes that cancellation
-    exactly (host f64 precompute) at identical device cost."""
+    exactly (host f64 precompute) at identical device cost.
+
+    Compared and hashed by identity: `ar2_kernels` hands out one object
+    per (sections, block), which keys its tables on a device."""
     L: np.ndarray      # (S, B, B) lower-triangular Toeplitz of h
     G: np.ndarray      # (S, 2, 2) block carry propagation (direct basis)
     p: np.ndarray      # (S, B) response column for y_{-1} (direct basis)
@@ -268,8 +275,14 @@ def residual_flags(sos: np.ndarray, block: int = DEFAULT_BLOCK) -> np.ndarray:
     return flags
 
 
-def _const(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
+@lru_cache(maxsize=512)
+def _device_tables(kernels: AR2Kernels, dtype: torch.dtype,
+                   device: torch.device):
+    """(L, S, Gm, Pm) of every section as tensors of `dtype` on `device`,
+    made once per (kernels, type, device)."""
+    as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                     device=device)
+    return as_t(kernels.L), as_t(kernels.S), as_t(kernels.Gm), as_t(kernels.Pm)
 
 
 def fir3(x, b0, b1, b2, x1, x2):
@@ -314,10 +327,8 @@ def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2):
     if n % b:
         raise ValueError(f"length {n} not a multiple of block {b}")
     k = n // b
-    L = _const(kernels.L[section], f)          # (B, B)
-    S = _const(kernels.S[section], f)          # (2, 2)
-    Gm = _const(kernels.Gm[section], f)        # (2, 2)
-    Pm = _const(kernels.Pm[section], f)        # (2, B)
+    L, S, Gm, Pm = (t[section] for t in _device_tables(kernels, f.dtype,
+                                                        f.device))
 
     fb = f.reshape(f.shape[:-1] + (k, b))
     with full_float32():
@@ -336,6 +347,62 @@ def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2):
     c_prev = torch.cat([c_init[..., None, :], c[..., :-1, :]], dim=-2)
     y = u + c_prev[..., 0:1] * Pm[0] + c_prev[..., 1:2] * Pm[1]
     return y.reshape(f.shape[:-1] + (n,))
+
+
+def ar2_apply_blocked_banded(f, kernels: AR2Kernels, y1, y2):
+    """Banded variant: apply section b of `kernels` to band row b.
+
+    f: (..., B, N) with B == number of sections in `kernels` and N a
+    multiple of kernels.block. y1, y2: (..., B) initial conditions.
+    Returns y: (..., B, N). Parallel filter banks (octave bank, vocoder)
+    run a different biquad in every band over the same timeline: one
+    batched product with the band axis as the batch. Its products run
+    in full float32 (`full_float32()`).
+    """
+    b = kernels.block
+    nbands = kernels.L.shape[0]
+    if f.shape[-2] != nbands:
+        raise ValueError(f"band axis {f.shape[-2]} != kernel sections {nbands}")
+    n = f.shape[-1]
+    if n % b:
+        raise ValueError(f"length {n} not a multiple of block {b}")
+    k = n // b
+    # (B, blk, blk), (B, 2, 2), (B, 2, 2), (B, 2, blk)
+    L, S, Gm, Pm = _device_tables(kernels, f.dtype, f.device)
+
+    fb = f.reshape(f.shape[:-1] + (k, b))
+    with full_float32():
+        # the band axis is the batch of one product a band
+        u = torch.einsum("...skb,scb->...skc", fb, L)          # (..., B, K, blk)
+        w = torch.stack([u[..., b - 1], u[..., b - 2]], dim=-1)  # (..., B, K, 2)
+        c_init = torch.stack([y1, y2], dim=-1).to(f.dtype)      # (..., B, 2)
+        if bool(np.any(kernels.modal)):  # carry in the modal basis per band
+            w = torch.einsum("sij,...skj->...ski", S, w)
+            c_init = torch.einsum("sij,...sj->...si", S, c_init)
+        w0 = w[..., :1, :] + torch.einsum("sij,...sj->...si", Gm,
+                                          c_init)[..., None, :]
+        w = torch.cat([w0, w[..., 1:, :]], dim=-2)
+        c = _affine_scan_banded(Gm, w)
+    c_prev = torch.cat([c_init[..., None, :], c[..., :-1, :]], dim=-2)
+    y = (u + c_prev[..., 0:1] * Pm[:, None, 0, :]
+         + c_prev[..., 1:2] * Pm[:, None, 1, :])
+    return y.reshape(f.shape[:-1] + (n,))
+
+
+def _affine_scan_banded(G, w):
+    """Like _affine_scan but G is per band (B, 2, 2) and w is
+    (..., B, K, 2); scans over K by the same doubling. Call it under
+    `full_float32()`."""
+    c = w
+    A = G
+    d = 1
+    K = w.shape[-2]
+    while d < K:
+        shifted = torch.einsum("sij,...skj->...ski", A, c[..., :-d, :])
+        c = torch.cat([c[..., :d, :], c[..., d:, :] + shifted], dim=-2)
+        A = A @ A
+        d *= 2
+    return c
 
 
 def ar2_apply_scan(f, a1, a2, y1, y2):

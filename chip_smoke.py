@@ -116,7 +116,21 @@ Phases, each printing its own lines:
                feedback Compressor called directly at 8 ch x 48128 in
                float32 and float64; D1's times beside its byte bound and
                the chain bound of its dependent walk;
- 10. kernels — the line of every kernel with its launches by path.
+ 10. analysis — the analysis slice at full width: the OctaveAnalyzer
+               (1/3 octave, 30 bands, order 4) streamed over 64 ch x 94
+               blocks of 512 (K4 once a block on 1920 rows) and one-shot
+               at 8 ch x 48128, the MultirateOctaveAnalyzer (order 10) at
+               8 x 48128, the STFT path (stft -> istft, a 64-mel
+               spectrogram, Goertzel at the 30 band centres), the default
+               HilbertTransformer (its two allpass chains on K3) and 2^24
+               samples of white and pink noise; each against the port's
+               CPU path in float64, float32 and float64 on the card, with
+               its bar, its time, its K3 and K4 launches and no plain
+               version called; the TF32 check (mel, Goertzel, the banded
+               engine and the resampler bit-equal under a caller's
+               set_float32_matmul_precision("high") and
+               cudnn.allow_tf32 = True);
+ 11. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -330,24 +344,57 @@ def graph_ms(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_breakdown(torch, fn, reps: int, prefixes) -> dict:
-    """Device time per kernel, mean per call, from torch.profiler over
-    `reps` calls of fn: the kernels whose names start with one of
-    `prefixes`. Empty where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def device_activity(torch, fn, reps: int, prefixes=()) -> dict:
+    """The device's own activities (kernels, copies, memsets) in one call
+    of fn, from torch.profiler over `reps` calls after a warm-up call:
+    {"by_name": {name: ms}, "ms": total ms, "count": activities, "h2d":
+    host-to-device copies}, each a call, and "dropped", the records one
+    session had and the other lacked; "by_name" only the names that
+    start with one of `prefixes` where given; "ms" None where the
+    profiler recorded no device time. Read from the profiler's raw
+    activity records, not from its operators' totals, which count each
+    activity again, and without the step annotations the schedule adds
+    to the device's records. Late in this script a session can drop
+    device records: six in every session of one run on the H100, all of
+    one session's in another. So each session's warm-up step (32 small
+    kernels and one call, device tracing already on) takes the first
+    ones, and of two sessions the one with more records is kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        name = e.key.split("(")[0].removeprefix("void ")
-        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if t and name.startswith(tuple(prefixes)):
-            out[name] = out.get(name, 0.0) + t / 1e3 / reps
-    return out
+    pad = torch.zeros(1, device="cuda")
+    sessions = []
+    for _ in range(2):
+        recs = []
+        sessions.append(recs)
+
+        def ready(prof, recs=recs):
+            recs.extend((e.name(), e.duration_ns())
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA
+                        and not e.is_user_annotation())
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(32):
+                pad.add_(1.0)
+            for _ in range(reps + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+    recs = max(sessions, key=len)
+    by_name = {}
+    for name, ns in recs:
+        name = name.split("(")[0].removeprefix("void ")
+        by_name[name] = by_name.get(name, 0.0) + ns / 1e6 / reps
+    ms = sum(by_name.values())
+    if prefixes:
+        by_name = {k: t for k, t in by_name.items() if k.startswith(tuple(prefixes))}
+    return {"by_name": by_name, "ms": ms or None, "count": len(recs) / reps,
+            "h2d": sum("HtoD" in name for name, _ in recs) / reps,
+            "dropped": abs(len(sessions[0]) - len(sessions[1]))}
 
 
 def bound(nbytes: float, flops: float):
@@ -490,6 +537,444 @@ def chain_moog_node(MoogFilter, MoogVariant):
     return MoogFilter(SR, variant=MoogVariant.HUOVILAINEN, oversampling=4,
                       cutoff_hz=1200.0, resonance=2.0,
                       drive=10.0 ** (6.0 / 20.0), normalize_output=True)
+
+
+# Bars of the analysis phase, each from the JAX test that covers the
+# function: float64 against the CPU path as the port's tests hold float64
+# against the JAX package; float32 bands against float64 at
+# tests/test_precision.py's float32 bar for the whole-cascade engine on its
+# slowest high-pass (hp60_o4, 88 dB; the 25 Hz band is slower still); the
+# STFT's round trip at tests/test_spectrum.py's 2e-5, and the spectra and
+# mel powers at the SNR of that relative error (94 dB); the Hilbert
+# transformer at tests/test_native.py's 120 dB; the Goertzel state at the
+# float32 dot-product bound (the power formula itself cancels in float32
+# near DC), its float64 power at tests/test_goertzel.py's rtol 1e-9; noise
+# at tests/test_signal.py's statistics.
+ANALYSIS_F64_DB = 200.0
+ANALYSIS_BANDS_F32_DB = 88.0
+ANALYSIS_STFT_ERR = 2e-5
+ANALYSIS_STFT_F32_DB = 20.0 * math.log10(1.0 / ANALYSIS_STFT_ERR)
+ANALYSIS_HILBERT_F32_DB = 120.0
+ANALYSIS_NOISE_N = 1 << 24
+
+
+def analysis_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> None:
+    """The analysis slice on the card at full width: the streamed and
+    one-shot OctaveAnalyzer, the MultirateOctaveAnalyzer, the STFT path
+    (stft -> istft, mel spectrogram, Goertzel at the band centres), the
+    HilbertTransformer and the noise generators. Each item against the
+    port's CPU path in float64 (float32 and float64 on the card), its
+    time from CUDA events, its K3 and K4 launches (added to the kernels'
+    `by_path`) with no plain version called; then the TF32 check."""
+    from algodsp_tpu_torch import signal, spectrum
+    from algodsp_tpu_torch.filters.bank import (
+        MultirateOctaveAnalyzer, OctaveAnalyzer, octave_band_specs)
+    from algodsp_tpu_torch.filters.hilbert import HilbertTransformer
+    from algodsp_tpu_torch.ops.envscan import envelope_scan
+    from algodsp_tpu_torch.spectrum.goertzel import _basis_cached
+
+    t_an = time.perf_counter()
+    plain = [(bqmod, "biquad_cascade_plain"), (envscan, "envelope_scan_plain")]
+    k4 = envscan.envelope_scan_kernel
+    rng = np.random.default_rng(12)
+    cpu64 = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    on_card = {dt: (lambda a, dt=dt: torch.as_tensor(a, dtype=dt, device=dev))
+               for dt in (torch.float32, torch.float64)}
+    block_ms = CHAIN_BLOCK / SR * 1e3
+
+    def driven(path, fn):
+        """fn() with every launch counter at 0 before and read after, the
+        plain versions' calls counted; the launches go to `by_path`."""
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        k4.reset_counts()
+        with plain_calls(plain) as plain_n:
+            out = fn()
+            torch.cuda.synchronize()
+        launches = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n, k in kernels.items():
+            k["by_path"][path] = launches[n]
+        assert not any(plain_n.values()), (path, plain_n)
+        used = {n: v for n, v in launches.items() if v}
+        assert set(used) <= {"biquad_cascade", "envelope"}, (path, used)
+        return out, used, k4.counts()
+
+    def timed(label, fn, reps, per=1, note=""):
+        """Print the wall time of fn (CUDA events, `reps` calls, divided
+        by `per`) beside its device time and operations (profiler) and
+        the device's busy share of the wall; return the wall ms."""
+        ms = time_ms(torch, fn, reps=reps, warmup=1) / per
+        act = device_activity(torch, fn, min(reps, 3))
+        busy = ("device time not measured" if act["ms"] is None else
+                f"device {act['ms'] / per:.4f} ms in {act['count'] / per:.0f} "
+                f"kernels and copies ({act['h2d'] / per:.0f} host-to-device), "
+                f"busy {100 * act['ms'] / per / ms:.1f}% of the wall (profiler; "
+                f"{act['dropped']} records in one session only)")
+        print(f"time analysis {label}: {ms:.4f} ms{note}; {busy} ({gpu})")
+        return ms
+
+    def bar_line(label, got, bar, unit="dB"):
+        ok = got >= bar
+        print(f"analysis {label}: {got:.1f} {unit} (bar >= {bar:.1f}) "
+              f"{'ok' if ok else 'FAILED'}")
+        assert ok, label
+
+    def k4_check(label, targets, env_in, env_out):
+        """K4 as the analyzer launches it (its wrapper on the analyzer's
+        |bands| and entering state, leading dims flattened onto rows)
+        against its plain version on host copies of the same inputs, at
+        the envelope check's bars (float32: trajectory SNR >= 100 dB and
+        env_final within 1e-5 of 1 + its scale; float64: both within
+        1e-12 of the trajectory's scale). env_out, the analyzer's own
+        state after the call, must be the wrapper's env_final bit for
+        bit."""
+        ef, tr = envelope_scan(targets, env_in, an.attack_coeff, an.release_coeff)
+        ef_p, tr_p = envscan.envelope_scan_plain(
+            targets.cpu(), env_in.cpu(), torch.tensor(an.attack_coeff, dtype=targets.dtype),
+            torch.tensor(an.release_coeff, dtype=targets.dtype))
+        tr, ef, tr_p, ef_p = (host(v) for v in (tr, ef, tr_p, ef_p))
+        err = float(np.max(np.abs(tr - tr_p)))
+        ef_err = float(np.max(np.abs(ef - ef_p)))
+        snr = snr_db(tr_p, tr)
+        same = bool(np.array_equal(ef, host(env_out)))
+        if targets.dtype == torch.float64:
+            scale = float(np.max(np.abs(tr_p)))
+            ok = err <= 1e-12 * scale and ef_err <= 1e-12 * scale
+            bars = f"bar max|err| <= {1e-12 * scale:.3e} on both"
+        else:
+            ef_scale = 1.0 + float(np.max(np.abs(ef_p)))
+            ok = snr >= 100 and ef_err <= 1e-5 * ef_scale
+            bars = f"bars SNR >= 100 dB, env_final <= {1e-5 * ef_scale:.3e}"
+        print(f"analysis check envelope {label}: {targets.dtype} rows "
+              f"{tr.size // tr.shape[-1]} (state {tuple(env_in.shape)}) "
+              f"T={tr.shape[-1]} vs plain: SNR {snr:.1f} dB, max|err| "
+              f"{err:.3e}, env_final max|err| {ef_err:.3e} ({bars}); the "
+              f"analyzer's state is env_final bit for bit {same} "
+              f"{'ok' if ok and same else 'FAILED'}")
+        assert ok and same, label
+        kernels["envelope"]["errs"].append(err)
+
+    # 1. the streamed OctaveAnalyzer: 1/3 octave, 30 bands, order 4, 64 ch x
+    # 94 blocks of 512 (the chain's block stream); K4 once a block on
+    # 64 x 30 = 1920 rows
+    an = OctaveAnalyzer(3, SR, order=4)
+    nb = an.bank.num_bands
+    assert nb == 30, nb
+    n_stream = CHAIN_BLOCKS * CHAIN_BLOCK
+    xs_np = rng.standard_normal((CHAIN_CH, n_stream)).astype(np.float32)
+    blocks = {dt: [f(xs_np[:, b * CHAIN_BLOCK:(b + 1) * CHAIN_BLOCK])
+                   for b in range(CHAIN_BLOCKS)] for dt, f in on_card.items()}
+
+    def stream(dtype, n_blocks=CHAIN_BLOCKS, keep=0):
+        st = an.init_state((CHAIN_CH,), dtype, dev)
+        kept, envs = [], []
+        for b in range(n_blocks):
+            st, bands, levels = an.process(st, blocks[dtype][b])
+            envs.append(st["env"])
+            if b < keep:
+                kept.append(bands)
+        return st, levels, kept, envs
+
+    (st32, lev32, kept32, envs32), used, counts = driven(
+        "analysis_stream", lambda: stream(torch.float32, keep=8))
+    print(f"analysis OctaveAnalyzer streamed {CHAIN_CH}x{CHAIN_BLOCK} x "
+          f"{CHAIN_BLOCKS} blocks ({nb} bands, {CHAIN_CH * nb} envelope rows): "
+          f"launches per block {json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}"
+          f", plain versions called 0, envelope counts {json.dumps(counts)}")
+    assert used == {"envelope": CHAIN_BLOCKS}, used
+    _, _, kept64, envs64 = stream(torch.float64, n_blocks=8, keep=8)
+    st_c = an.init_state((CHAIN_CH,), torch.float64, "cpu")
+    ref, env_ref = [], []
+    for b in range(CHAIN_BLOCKS):
+        st_c, bands_c, _ = an.process(st_c, cpu64(xs_np[:, b * CHAIN_BLOCK:
+                                                        (b + 1) * CHAIN_BLOCK]))
+        env_ref.append(st_c["env"].numpy())
+        if b < 8:
+            ref.append(bands_c.numpy())
+    ref, env_ref = np.concatenate(ref, -1), np.stack(env_ref)
+    got32 = np.concatenate([host(v) for v in kept32], -1)
+    got64 = np.concatenate([host(v) for v in kept64], -1)
+    per_band = [snr_db(ref[:, b], got32[:, b]) for b in range(nb)]
+    print(f"analysis OctaveAnalyzer streamed bands, 8 blocks vs the CPU path in "
+          f"float64: float32 {snr_db(ref, got32):.1f} dB, worst band "
+          f"{min(per_band):.1f} dB at {an.centers[int(np.argmin(per_band))]:.1f} "
+          f"Hz (25-40 Hz: {', '.join(f'{v:.1f}' for v in per_band[:3])}); "
+          f"float64 {snr_db(ref, got64):.1f} dB")
+    bar_line("OctaveAnalyzer streamed float32 worst band", min(per_band),
+             ANALYSIS_BANDS_F32_DB)
+    bar_line("OctaveAnalyzer streamed float64", snr_db(ref, got64), ANALYSIS_F64_DB)
+    # K4 at this launch shape (1920 rows x 512, the (64, 30) state carried
+    # from block to block) against its plain version on the same inputs
+    for dt, kept, envs in ((torch.float32, kept32, envs32),
+                           (torch.float64, kept64, envs64)):
+        for b in range(8):
+            env_in = envs[b - 1] if b else torch.zeros_like(envs[0])
+            k4_check(f"streamed block {b}", torch.abs(kept[b]), env_in, envs[b])
+    # the analyzer's envelopes over all 94 blocks against the CPU path in
+    # float64: the band error passes through the envelope, so the bands'
+    # bars hold
+    e32 = np.stack([host(v) for v in envs32])
+    e64 = np.stack([host(v) for v in envs64])
+    env_band = [snr_db(env_ref[..., b], e32[..., b]) for b in range(nb)]
+    lev_ref = 20.0 * np.log10(np.maximum(env_ref[-1], 1e-10))
+    lev = host(lev32)
+    assert lev.shape == (CHAIN_CH, nb) and np.all(np.isfinite(lev))
+    print(f"analysis OctaveAnalyzer streamed envelopes, {CHAIN_BLOCKS} blocks "
+          f"x {CHAIN_CH} ch x {nb} bands vs the CPU path in float64: float32 "
+          f"{snr_db(env_ref, e32):.1f} dB, worst band {min(env_band):.1f} dB at "
+          f"{an.centers[int(np.argmin(env_band))]:.1f} Hz, final levels max "
+          f"|err| {np.max(np.abs(lev - lev_ref)):.3e} dB; float64 (8 blocks) "
+          f"{snr_db(env_ref[:8], e64):.1f} dB")
+    bar_line("OctaveAnalyzer streamed envelopes float32 worst band",
+             min(env_band), ANALYSIS_BANDS_F32_DB)
+    bar_line("OctaveAnalyzer streamed envelopes float64",
+             snr_db(env_ref[:8], e64), ANALYSIS_F64_DB)
+    k4_ms = device_activity(torch, lambda: an.process(st32, blocks[torch.float32][0]),
+                            10, ("envelope_",))["by_name"]
+    ms = timed(f"OctaveAnalyzer streamed per block ({CHAIN_CH}x{CHAIN_BLOCK}, {nb} "
+               f"bands, 3 x {CHAIN_BLOCKS} blocks)", lambda: stream(torch.float32),
+               3, per=CHAIN_BLOCKS)
+    print(f"time analysis OctaveAnalyzer streamed: real-time factor "
+          f"{block_ms / ms:.2f}; K4 device time a block (profiler) "
+          + (", ".join(f"{k} {t:.4f} ms" for k, t in k4_ms.items()) or "not measured")
+          + f" ({gpu})")
+
+    # 2. the one-shot OctaveAnalyzer, 8 ch x 48128 (the band tensor 8 x 30 x
+    # 48128 float32, ~46 MB)
+    x1_np = rng.standard_normal((CHANNELS, N_FLAGSHIP)).astype(np.float32)
+    x1 = {dt: f(x1_np) for dt, f in on_card.items()}
+    one = lambda dt: an.process(an.init_state((CHANNELS,), dt, dev), x1[dt])
+    (so32, b32, l32), used, counts = driven("analysis_oneshot",
+                                            lambda: one(torch.float32))
+    so64, b64, l64 = one(torch.float64)
+    st_c, bc, lc = an.process(an.init_state((CHANNELS,), torch.float64, "cpu"),
+                              cpu64(x1_np))
+    bc, g32, g64 = bc.numpy(), host(b32), host(b64)
+    per_band = [snr_db(bc[:, b], g32[:, b]) for b in range(nb)]
+    env_c, env32, env64 = st_c["env"].numpy(), host(so32["env"]), host(so64["env"])
+    env_band = [snr_db(env_c[:, b], env32[:, b]) for b in range(nb)]
+    lc = lc.numpy()
+    print(f"analysis OctaveAnalyzer one-shot {CHANNELS}x{N_FLAGSHIP} "
+          f"({b32.numel() * 4 / 1e6:.1f} MB of bands): launches "
+          f"{json.dumps(used)}, plain versions called 0; vs the CPU path in "
+          f"float64: float32 {snr_db(bc, g32):.1f} dB, worst band "
+          f"{min(per_band):.1f} dB, envelopes {snr_db(env_c, env32):.1f} dB, "
+          f"worst band {min(env_band):.1f} dB, levels max |err| "
+          f"{np.max(np.abs(host(l32) - lc)):.3e} dB; float64 "
+          f"{snr_db(bc, g64):.1f} dB, envelopes {snr_db(env_c, env64):.1f} dB, "
+          f"levels max |err| {np.max(np.abs(host(l64) - lc)):.3e} dB")
+    assert used == {"envelope": 1}, used
+    bar_line("OctaveAnalyzer one-shot float32 worst band", min(per_band),
+             ANALYSIS_BANDS_F32_DB)
+    bar_line("OctaveAnalyzer one-shot float64", snr_db(bc, g64), ANALYSIS_F64_DB)
+    bar_line("OctaveAnalyzer one-shot envelopes float32 worst band",
+             min(env_band), ANALYSIS_BANDS_F32_DB)
+    bar_line("OctaveAnalyzer one-shot envelopes float64", snr_db(env_c, env64),
+             ANALYSIS_F64_DB)
+    # K4 at this launch shape: 240 rows x 48128
+    for dt, bands, st in ((torch.float32, b32, so32), (torch.float64, b64, so64)):
+        k4_check("one-shot", torch.abs(bands), torch.zeros_like(st["env"]),
+                 st["env"])
+    ms = timed(f"OctaveAnalyzer one-shot {CHANNELS}x{N_FLAGSHIP} a call",
+               lambda: one(torch.float32), 5)
+    print(f"time analysis OctaveAnalyzer one-shot: {N_FLAGSHIP / SR * 1e3 / ms:.1f}x "
+          f"real time ({gpu})")
+    del b32, b64, bc, g32, g64
+
+    # 3. the MultirateOctaveAnalyzer: 1/3 octave, order 10, analyze at
+    # 8 x 48128 (752 x 64: every decimation factor divides it)
+    mr = MultirateOctaveAnalyzer(3, SR, order=10)
+    assert N_FLAGSHIP % mr.max_ds == 0
+    p32, used, _ = driven("analysis_multirate", lambda: mr.analyze(x1[torch.float32]))
+    p64 = host(mr.analyze(x1[torch.float64]))
+    pc = mr.analyze(cpu64(x1_np)).numpy()
+    p32 = host(p32)
+    worst = min(snr_db(pc[:, b], p32[:, b]) for b in range(mr.num_bands))
+    print(f"analysis MultirateOctaveAnalyzer analyze {CHANNELS}x{N_FLAGSHIP} "
+          f"({mr.num_bands} bands, {len(mr._groups)} decimation groups, "
+          f"factors up to {mr.max_ds}): launches {json.dumps(used)} (matrix "
+          f"engines and the resampler's product only); peaks vs the CPU path "
+          f"in float64: float32 {snr_db(pc, p32):.1f} dB, worst band "
+          f"{worst:.1f} dB; float64 {snr_db(pc, p64):.1f} dB")
+    assert used == {}, used
+    bar_line("MultirateOctaveAnalyzer float32 worst band", worst,
+             ANALYSIS_BANDS_F32_DB)
+    bar_line("MultirateOctaveAnalyzer float64", snr_db(pc, p64), ANALYSIS_F64_DB)
+    timed(f"MultirateOctaveAnalyzer analyze {CHANNELS}x{N_FLAGSHIP} a call",
+          lambda: mr.analyze(x1[torch.float32]), 5)
+    # where its host time goes: each decimation group's resampler,
+    # band-pass and envelope chains alone, the chains on the whole-cascade
+    # engine where the group's length is a block multiple, else on the
+    # per-section one
+    parts = []
+    x32 = x1[torch.float32]
+    for g, st in zip(mr._groups, mr.init_state((CHANNELS,), torch.float32, dev)):
+        xg = x32 if g["resampler"] is None else g["resampler"].process_stream(
+            st["resamp"], x32)[1]
+        xb = xg[..., None, :].expand(xg.shape[:-1] + (g["bandpass"].n_bands,
+                                                      xg.shape[-1]))
+        ab = torch.abs(g["bandpass"].process_stream(st["bank"], xb)[1])
+        calls = {"band-pass": lambda: g["bandpass"].process_stream(st["bank"], xb),
+                 "envelope": lambda: g["envelope"].process_stream(st["env"], ab)}
+        if g["resampler"] is not None:
+            calls["resampler"] = lambda: g["resampler"].process_stream(st["resamp"], x32)
+        got = {k: (time_ms(torch, fn, reps=5, warmup=1),
+                   device_activity(torch, fn, 3)["count"]) for k, fn in calls.items()}
+        sections = bool(xg.shape[-1] % g["bandpass"].block_size)
+        parts.append((sections, sum(ms for ms, _ in got.values())))
+        path = "per-section" if sections else "cascade"
+        print(f"time analysis MultirateOctaveAnalyzer group x{g['ds']} ({xg.shape[-1]} "
+              f"samples, {g['bandpass'].n_bands} bands, {g['bandpass'].n_sections} + "
+              f"{g['envelope'].n_sections} sections, {path} engine): "
+              + ", ".join(f"{k} {ms:.4f} ms in {n:.0f} device activities"
+                          for k, (ms, n) in got.items()) + f" ({gpu})")
+    print(f"time analysis MultirateOctaveAnalyzer groups: "
+          f"{sum(ms for _, ms in parts):.4f} ms in all, the per-section groups "
+          f"{sum(ms for sec, ms in parts if sec):.4f} ms ({gpu})")
+
+    # 4. the STFT path, 8 x 48128: stft -> istft, mel spectrogram (2048 /
+    # 512, 64 mels), Goertzel at the 30 band centres
+    ri = lambda a: np.stack([a.real, a.imag])
+    centres = [s[0] for s in octave_band_specs(3, SR)]
+
+    def stft_path(dt):
+        spec = spectrum.stft(x1[dt], 2048, 512)
+        y = spectrum.istft(spec, 512, length=N_FLAGSHIP)
+        mel = spectrum.mel_spectrogram(x1[dt], SR, n_mels=64, frame_size=2048,
+                                       hop_size=512, log=False)
+        g = spectrum.Goertzel(centres, SR)
+        st = g.process_block(g.init_state((CHANNELS,), dt, dev), x1[dt])
+        return spec, y, mel, st, g.power(st)
+
+    out32, used, _ = driven("analysis_stft", lambda: stft_path(torch.float32))
+    assert used == {}, used
+    out64 = stft_path(torch.float64)
+    spec_c = spectrum.stft(cpu64(x1_np), 2048, 512).numpy()
+    mel_c = spectrum.mel_spectrogram(cpu64(x1_np), SR, n_mels=64, frame_size=2048,
+                                     hop_size=512, log=False).numpy()
+    gc = spectrum.Goertzel(centres, SR)
+    st_c = gc.process_block(gc.init_state((CHANNELS,), torch.float64, "cpu"),
+                            cpu64(x1_np))
+    pow_c = gc.power(st_c).numpy()
+    rt_err = float(np.max(np.abs(host(out32[1]) - x1_np)))
+    basis, _ = _basis_cached(tuple(centres), SR, N_FLAGSHIP)
+    xin = x1_np.astype(np.float64)
+    g_bound = (N_FLAGSHIP + 2) * np.finfo(np.float32).eps / 2 * np.einsum(
+        "cn,nks->cks", np.abs(xin), np.abs(basis))
+    g_err = np.abs(host(out32[3]) - st_c.numpy())
+    rows = {
+        "stft spectra": (snr_db(ri(spec_c), ri(host(out32[0]))),
+                         snr_db(ri(spec_c), ri(host(out64[0])))),
+        "mel power": (snr_db(mel_c, host(out32[2])), snr_db(mel_c, host(out64[2]))),
+        "goertzel power": (snr_db(pow_c, host(out32[4])),
+                           snr_db(pow_c, host(out64[4]))),
+    }
+    print(f"analysis STFT path {CHANNELS}x{N_FLAGSHIP} (stft 2048/512, istft, "
+          f"mel 64, Goertzel at {len(centres)} centres): launches none; vs the "
+          f"CPU path in float64: " + "; ".join(
+              f"{k} float32 {a:.1f} dB, float64 {b:.1f} dB"
+              for k, (a, b) in rows.items())
+          + f"; round trip float32 max |err| {rt_err:.3e}; Goertzel float32 "
+          f"state error at most {float(np.max(g_err / g_bound)):.3f} of its "
+          f"dot-product bound; float64 power max rel err "
+          f"{float(np.max(np.abs(host(out64[4]) - pow_c) / np.abs(pow_c))):.3e}")
+    assert rt_err < ANALYSIS_STFT_ERR, rt_err
+    bar_line("stft float32", rows["stft spectra"][0], ANALYSIS_STFT_F32_DB)
+    bar_line("mel float32", rows["mel power"][0], ANALYSIS_STFT_F32_DB)
+    for k, (_, b) in rows.items():
+        bar_line(f"{k} float64", b, ANALYSIS_F64_DB)
+    assert np.all(g_err <= g_bound)
+    np.testing.assert_allclose(host(out64[4]), pow_c, rtol=1e-9)
+    for label, fn in (
+            ("stft + istft", lambda: spectrum.istft(spectrum.stft(x32, 2048, 512),
+                                                    512, length=N_FLAGSHIP)),
+            ("mel_spectrogram", lambda: spectrum.mel_spectrogram(
+                x32, SR, n_mels=64, frame_size=2048, hop_size=512)),
+            ("goertzel_power", lambda: spectrum.goertzel_power(x32, centres, SR))):
+        timed(f"{label} {CHANNELS}x{N_FLAGSHIP} float32 a call", fn, 10)
+
+    # 5. the HilbertTransformer (default preset) on 8 x 48128: its two
+    # allpass chains on K3, each one launch over both half-rate streams
+    ht = HilbertTransformer()
+    (a32, bq32), used, _ = driven("analysis_hilbert", lambda: ht.process(x1[torch.float32]))
+    a64, bq64 = ht.process(x1[torch.float64])
+    ac, bc = (v.numpy() for v in ht.process(cpu64(x1_np)))
+    modes = {name: ch._auto_mode(x1[torch.float32][..., 0::2])
+             for name, ch in (("chain_a", ht.chain_a), ("chain_b", ht.chain_b))}
+    s32 = min(snr_db(ac, host(a32)), snr_db(bc, host(bq32)))
+    s64 = min(snr_db(ac, host(a64)), snr_db(bc, host(bq64)))
+    print(f"analysis HilbertTransformer ({ht.coeffs.size} coefficients, "
+          f"transition {ht.transition}) {CHANNELS}x{N_FLAGSHIP}: auto dispatch "
+          f"{json.dumps(modes)} (float64: blocked), launches {json.dumps(used)}, "
+          f"plain versions called 0; a and b vs the CPU path in float64: "
+          f"float32 {s32:.1f} dB, float64 {s64:.1f} dB")
+    assert used == {"biquad_cascade": 2}, used
+    assert set(modes.values()) == {"kernel"}, modes
+    bar_line("HilbertTransformer float32", s32, ANALYSIS_HILBERT_F32_DB)
+    bar_line("HilbertTransformer float64", s64, ANALYSIS_F64_DB)
+    timed(f"HilbertTransformer {CHANNELS}x{N_FLAGSHIP} float32 a call",
+          lambda: ht.process(x1[torch.float32]), 10)
+
+    # 6. noise: 2^24 samples of each on the card
+    def noise():
+        return (signal.white_noise(1.0, ANALYSIS_NOISE_N, seed=1, device=dev),
+                signal.pink_noise(1.0, ANALYSIS_NOISE_N, seed=1, device=dev))
+
+    (wn, pn), used, _ = driven("analysis_noise", noise)
+    assert used == {}, used
+    w = host(wn).astype(np.float64)
+    p = host(pn).astype(np.float64)
+    spec_p = np.abs(np.fft.rfft(p[:1 << 16])) ** 2
+    freqs = np.fft.rfftfreq(1 << 16, 1 / SR)
+    band = lambda lo, hi: spec_p[(freqs >= lo) & (freqs < hi)].mean()
+    slope = 10 * np.log10(band(1600, 3200) / band(100, 200)) / 4
+    print(f"analysis noise {ANALYSIS_NOISE_N} samples on the card: white mean "
+          f"{w.mean():.2e} (bar |.| < 0.01), variance {w.var():.5f} (bar within "
+          f"0.01 of 1/3), max |x| {np.abs(w).max():.6f} (bar <= 1); pink "
+          f"{slope:.2f} dB/octave (bar -4.5 .. -1.5), finite "
+          f"{bool(np.all(np.isfinite(p)))}")
+    assert np.all(np.abs(w) <= 1.0) and abs(w.mean()) < 0.01
+    assert abs(w.var() - 1 / 3) < 0.01 and np.all(np.isfinite(p))
+    assert -4.5 < slope < -1.5, slope
+    same = torch.equal(wn, signal.white_noise(1.0, ANALYSIS_NOISE_N, seed=1,
+                                               device=dev))
+    assert same
+    for label, fn in (("white_noise", lambda: signal.white_noise(
+            1.0, ANALYSIS_NOISE_N, device=dev)), ("pink_noise", lambda: signal.pink_noise(
+            1.0, ANALYSIS_NOISE_N, device=dev))):
+        timed(f"{label} {ANALYSIS_NOISE_N} samples a call", fn, 5)
+
+    # the TF32 check: under a caller's set_float32_matmul_precision("high")
+    # and cudnn.allow_tf32 = True, the mel, Goertzel, banded-engine and
+    # resampler outputs hold the default's bits (the pin, as check fault 6)
+    from algodsp_tpu_torch.resample import Resampler
+    rs = Resampler(1, 64)
+    tf32_runs = {
+        "mel": lambda: spectrum.mel_spectrogram(x32, SR, n_mels=64),
+        "goertzel": lambda: spectrum.goertzel_power(x32, centres, SR),
+        "banded engine (bank)": lambda: an.bank.process(x32),
+        "resampler 1:64": lambda: rs.process(x32),
+        "multirate analyzer": lambda: mr.analyze(x32),
+    }
+    default = {k: fn() for k, fn in tf32_runs.items()}
+    caller = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        high = {k: fn() for k, fn in tf32_runs.items()}
+        kept = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.set_float32_matmul_precision(caller[0])
+        torch.backends.cudnn.allow_tf32 = caller[1]
+    equal = {k: bits_equal(torch, default[k], high[k]) for k in tf32_runs}
+    print(f"analysis TF32 check (set_float32_matmul_precision('high'), "
+          f"cudnn.allow_tf32 True): bit-equal to the default "
+          f"{json.dumps(equal)}; the caller's settings after the calls "
+          f"{kept}, restored to {caller}")
+    assert all(equal.values()) and kept == ("high", True), equal
+    print(f"analysis launches by path: "
+          f"{json.dumps({p: {n: k['by_path'].get(p, 0) for n, k in kernels.items() if k['by_path'].get(p, 0)} for p in ('analysis_stream', 'analysis_oneshot', 'analysis_multirate', 'analysis_stft', 'analysis_hilbert', 'analysis_noise')})}"
+          f"; phase {time.perf_counter() - t_an:.2f} s")
 
 
 def main() -> int:
@@ -1925,7 +2410,7 @@ def main() -> int:
     for label, (call, prefixes) in {
             "envelope_adjoint flagship": (ka_call, ("envelope_adjoint",)),
             "fdl_spectra_adjoint IR learning": (kd_call, ("fdl_spectra",))}.items():
-        parts = kernel_breakdown(torch, call, 20, prefixes)
+        parts = device_activity(torch, call, 20, prefixes)["by_name"]
         print(f"time {label} by launch (profiler, device ms per call): "
               + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
                  or "not measured") + f" ({gpu})")
@@ -2020,7 +2505,7 @@ def main() -> int:
                 lambda: [f() for f in k3_calls], 20, ("biquad_",)),
             "biquad_cascade chain block": (
                 block_calls["biquad_cascade"], 20, ("biquad_",))}.items():
-        parts = kernel_breakdown(torch, call, reps, prefixes)
+        parts = device_activity(torch, call, reps, prefixes)["by_name"]
         print(f"time {label} by launch (profiler, device ms per call): "
               + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
                  or "not measured") + f" ({gpu})")
@@ -2714,9 +3199,9 @@ def main() -> int:
               f"{CHAIN_BLOCKS} blocks of process_blocks): {dyn_ms[path]:.4f} "
               f"ms, real-time factor {CHAIN_BLOCK / SR * 1e3 / dyn_ms[path]:.2f}"
               f" ({gpu})")
-        parts = kernel_breakdown(
+        parts = device_activity(
             torch, lambda: chd.process(st_d, xs[:, :CHAIN_BLOCK]), 10,
-            ("biquad_", "envelope_", "dynamics_"))
+            ("biquad_", "envelope_", "dynamics_"))["by_name"]
         print(f"time {path} kernels per block by launch (profiler, device ms): "
               + (", ".join(f"{k} {t:.4f}" for k, t in parts.items())
                  or "not measured")
@@ -2909,7 +3394,14 @@ def main() -> int:
     assert all(kernels[n]["by_path"]["dyn_chain"] > 0 for n in (
         "biquad_cascade", "envelope", "dynamics_feedback"))
 
-    # -- 10. kernel list ----------------------------------------------------------
+    # -- 10. analysis: the analysis slice (analyzers, STFT path, Hilbert, noise) ----
+    analysis_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan)
+    for name, k in kernels.items():
+        k["launches"] = sum(k["by_path"].values())
+    assert kernels["envelope"]["by_path"]["analysis_stream"] == CHAIN_BLOCKS
+    assert kernels["biquad_cascade"]["by_path"]["analysis_hilbert"] > 0
+
+    # -- 11. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],

@@ -2,7 +2,8 @@
 
 - Importing every module of `algodsp_tpu_torch` loads neither `jax` nor
   `algodsp_tpu`, and no file of the port (nor chip_smoke.py) imports them.
-- Entry points raise when no CUDA device exists and none is named.
+- Entry points raise when no CUDA device exists and none is named
+  (those of the analysis modules too), and run when given "cpu".
 - Kernel wrappers given a CUDA tensor launch the kernel or raise: they
   never fall back to their plain versions. The cascade (zero state),
   envelope, FDL and Moog calls go through their autograd Functions; the
@@ -21,11 +22,11 @@ import pytest
 import torch
 
 import algodsp_tpu_torch
-from algodsp_tpu_torch import _build, convert
+from algodsp_tpu_torch import _build, convert, core, resample, signal, spectrum, window
 from algodsp_tpu_torch.chain import Chain
 from algodsp_tpu_torch.conv import PartitionedConvolver, conv
 from algodsp_tpu_torch.effects.dynamics import Compressor
-from algodsp_tpu_torch.filters import BiquadChain
+from algodsp_tpu_torch.filters import BiquadChain, bank
 from algodsp_tpu_torch.filters.moog import MoogFilter
 from algodsp_tpu_torch.ops import biquad_cascade as bq, dynfb, envscan, fdlconv, moog
 from algodsp_tpu_torch.pipeline import flagship_params
@@ -46,7 +47,14 @@ def test_import_leaves_jax_out():
     modules = list(_port_modules())
     assert {"algodsp_tpu_torch.diff", "algodsp_tpu_torch.ops.cascade",
             "algodsp_tpu_torch.ops.dynfb", "algodsp_tpu_torch.filters.crossover",
-            "algodsp_tpu_torch.effects.dynamics.processors"} <= set(modules)
+            "algodsp_tpu_torch.effects.dynamics.processors",
+            "algodsp_tpu_torch.core.pool", "algodsp_tpu_torch.core.config",
+            "algodsp_tpu_torch.testutil", "algodsp_tpu_torch.window.analyze",
+            "algodsp_tpu_torch.window.metadata", "algodsp_tpu_torch.spectrum.mel",
+            "algodsp_tpu_torch.spectrum.goertzel", "algodsp_tpu_torch.spectrum.stft",
+            "algodsp_tpu_torch.signal.generate", "algodsp_tpu_torch.filters.bank",
+            "algodsp_tpu_torch.filters.hilbert",
+            "algodsp_tpu_torch.resample.resample"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -89,9 +97,34 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: MoogFilter(48000.0).init_state((2,)),
         lambda: Chain(48000.0).init_state((2,)),
     ]
-    for call in calls:
+    analysis = [
+        lambda device=None: core.Pool(device=device),
+        lambda device=None: core.Buffer(4, device=device),
+        lambda device=None: window.window.window_tensor(window.WindowType.HANN, 8,
+                                                        device=device),
+        lambda device=None: signal.sine(440.0, 1.0, 8, 48000.0, device=device),
+        lambda device=None: signal.impulse(1.0, 8, device=device),
+        lambda device=None: signal.white_noise(1.0, 8, device=device),
+        lambda device=None: signal.pink_noise(1.0, 8, device=device),
+        lambda device=None: spectrum.Goertzel([1000.0], 48000.0).init_state(
+            (2,), device=device),
+        lambda device=None: spectrum.StreamingSTFT(64, 16).init_state(
+            (2,), device=device),
+        lambda device=None: spectrum.StreamingISTFT(64, 16).init_state(
+            (2,), device=device),
+        lambda device=None: bank.Bank.octave(1, 48000.0).init_state(
+            (2,), device=device),
+        lambda device=None: bank.OctaveAnalyzer(1, 48000.0).init_state(
+            (2,), device=device),
+        lambda device=None: bank.MultirateOctaveAnalyzer(1, 48000.0).init_state(
+            (2,), device=device),
+        lambda device=None: resample.Resampler(1, 2).init_state((2,), device=device),
+    ]
+    for call in calls + analysis:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    for call in analysis:
+        assert call(device="cpu") is not None
     assert MoogFilter(48000.0).init_state((2,), device="cpu")["stage"].shape == (2, 4)
     assert Chain(48000.0).init_state((2,), device="cpu") == {}
     assert algodsp_tpu_torch.resolve_device("cpu") == torch.device("cpu")
