@@ -12,8 +12,10 @@ The port registers the node types whose modules it has: the ten filter
 keys (`filter-moog` included), the dynamics family (`dyn-compressor`,
 feed-forward or feedback, `dyn-limiter`, `dyn-lookahead`, `dyn-gate`,
 `dyn-expander`, `dyn-deesser`, `dyn-transient`, `dyn-multiband`),
-`split-freq` (two output ports: low, high), `reverb-conv`,
-`delay-simple` and `widener`. Every other type of the JAX package's
+`split-freq` (two output ports: low, high), `delay` (its integer-lag
+echo train as an LTI descriptor, so `Chain.fuse_lti` folds it), the
+reverbs (`reverb`, switching on `model`, `reverb-freeverb`,
+`reverb-fdn`, `reverb-conv`), `delay-simple` and `widener`. Every other type of the JAX package's
 default registry raises KeyError saying that it is not ported yet
 (ROADMAP.md lists them).
 
@@ -45,7 +47,6 @@ FILTER_TYPES = ("filter", "filter-lowpass", "filter-highpass",
 # Types of the JAX package's default registry that wait for their
 # modules, in the order ROADMAP.md ports them.
 NOT_PORTED = (
-    "delay", "reverb", "reverb-freeverb", "reverb-fdn",
     "chorus", "flanger", "ringmod", "phaser", "tremolo",
     "bitcrusher", "distortion", "dist-cheb", "transformer", "bass",
     "spectral-freeze", "granular", "vocoder", "pitch-time",
@@ -115,7 +116,9 @@ def default_registry() -> Registry:
         BandConfig, Compressor, DeEsser, DetectorMode, Expander, Gate,
         Limiter, LookaheadLimiter, MultibandCompressor, Topology,
         TransientShaper)
-    from algodsp_tpu_torch.effects.reverb import ConvolutionReverb
+    from algodsp_tpu_torch.effects.delay_effect import Delay
+    from algodsp_tpu_torch.effects.reverb import (ConvolutionReverb,
+                                                  FDNReverb, Freeverb)
     from algodsp_tpu_torch.filters.biquad import BiquadChain
     from algodsp_tpu_torch.filters.crossover import Crossover
     from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
@@ -131,6 +134,35 @@ def default_registry() -> Registry:
                            process=lambda st, x, sc: (st, x),
                            lti=("kernel_fn", lambda tol_db: np.ones(1)))
     r.register("widener", _widener)
+
+    def _feedback_delay_kernel(delay: int, fb: float, mix: float):
+        """IR of the integer-lag feedback delay:
+        (1-mix)*d[0] + mix * sum_{k>=1} fb^(k-1) * d[n - k*delay]."""
+        def kernel(tol_db: float) -> np.ndarray:
+            if mix == 0.0:
+                return np.ones(1)
+            if fb == 0.0:
+                echoes = 1
+            else:
+                echoes = 1 + int(np.ceil(tol_db / (-20.0 * np.log10(fb))))
+            h = np.zeros(echoes * delay + 1)
+            h[0] = 1.0 - mix
+            h[np.arange(1, echoes + 1) * delay] = mix * fb ** np.arange(echoes)
+            return h
+        return kernel
+
+    def _delay(ctx, p):
+        fx = Delay(ctx.sample_rate,
+                   delay_seconds=get_num(p, "time", 0.25, 0.001, 2),
+                   feedback=get_num(p, "feedback", 0.35, 0, 0.99),
+                   mix=get_num(p, "mix", 0.25, 0, 1))
+        rt = _stateful(fx)
+        # constant integer lag (round(time*sr), no mid-stream retarget)
+        # makes the feedback loop a pure echo train
+        rt.lti = ("kernel_fn", _feedback_delay_kernel(
+            fx.delay_samples, fx.feedback, fx.mix))
+        return rt
+    r.register("delay", _delay)
 
     def _delay_simple(ctx, p):
         # runtime_modulation.go:332: delayMs 20 (0-500)
@@ -190,7 +222,35 @@ def default_registry() -> Registry:
     for key in FILTER_TYPES:
         r.register(key, _filter_factory(key))
 
-    # -- reverbs (runtime_misc.go:19-44) ------------------------------------
+    # -- reverbs (runtime_filter_pitch_reverb.go:325-380, runtime_misc.go) --
+    def _freeverb(ctx, p):
+        return _stateful(Freeverb(
+            wet=get_num(p, "wet", 0.22, 0, 1.5),
+            dry=get_num(p, "dry", 1, 0, 1.5),
+            room_size=get_num(p, "roomSize", 0.72, 0, 0.98),
+            damp=get_num(p, "damp", 0.45, 0, 0.99),
+            input_gain=get_num(p, "gain", 0.015, 0, 0.1)))
+
+    def _fdn(ctx, p):
+        return _stateful(FDNReverb(
+            ctx.sample_rate,
+            wet=get_num(p, "wet", 0.22, 0, 1.5),
+            dry=get_num(p, "dry", 1, 0, 1.5),
+            rt60_seconds=get_num(p, "rt60", 1.8, 0.2, 8),
+            pre_delay_seconds=get_num(p, "preDelay", 0.01, 0, 0.1),
+            damp=get_num(p, "damp", 0.45, 0, 0.99),
+            mod_depth_seconds=get_num(p, "modDepth", 0.002, 0, 0.01),
+            mod_rate_hz=get_num(p, "modRate", 0.1, 0, 1)))
+
+    def _reverb(ctx, p):
+        # "reverb" switches on the model string (`runtime:380`)
+        if get_str(p, "model").strip().lower() == "fdn":
+            return _fdn(ctx, p)
+        return _freeverb(ctx, p)
+    r.register("reverb", _reverb)
+    r.register("reverb-freeverb", _freeverb)
+    r.register("reverb-fdn", _fdn)
+
     def _reverb_conv(ctx, p):
         # IR library lookup by index (`runtime_misc.go:19-40`), with the
         # round-1 synthetic-IR params kept as a fallback

@@ -3,7 +3,7 @@ of `algodsp_tpu/effects/reverb/convolution.py`).
 
 Streaming block convolution with arbitrary-length IRs at latency
 2^min_block_order, wet/dry controls (`convolution.go:16-76`). The
-Freeverb and FDN reverbs are queued in ROADMAP.md.
+algorithmic reverbs are `freeverb.py` and `fdn.py` beside it.
 """
 
 from __future__ import annotations

@@ -100,6 +100,37 @@ def full_float32():
             m.fp32_precision = v
 
 
+@contextlib.contextmanager
+def full_float32_conv():
+    """Run cuDNN convolutions in full float32 inside the block, and
+    restore the caller's settings on exit, also on an exception.
+
+    `torch.backends.cudnn.allow_tf32` is True by default, so a float32
+    `conv1d` on the card would round its products to TF32. The flag is
+    cleared and restored through the API the caller's settings read back
+    through: the legacy flag, or, where the caller set the per-operation
+    settings apart (`torch.backends.cudnn.conv.fp32_precision`; the legacy
+    getter then raises), the convolution's, pinned to "ieee"."""
+    cudnn = torch.backends.cudnn
+    try:
+        saved = cudnn.allow_tf32
+    except RuntimeError:
+        saved = None
+    if saved is not None:
+        cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32 = saved
+        return
+    saved = cudnn.conv.fp32_precision
+    cudnn.conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        cudnn.conv.fp32_precision = saved
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class AR2Kernels:
     """Host-precomputed block kernels for a batch of S second-order

@@ -130,7 +130,22 @@ Phases, each printing its own lines:
                engine and the resampler bit-equal under a caller's
                set_float32_matmul_precision("high") and
                cudnn.allow_tf32 = True);
- 11. kernels — the line of every kernel with its launches by path.
+ 11. space — the delay feedback and reverb slice: R1-R3 (the Delay,
+               Freeverb and FDN feedback loops) against their plain
+               versions on the card (C = 65, the chain block, a ragged
+               length, lags under 130 and under a chunk, float32 and
+               float64, two calls bit-equal to one); SPACE_GRAPH (low-cut
+               -> delay -> Freeverb -> FDN) streamed over 64 ch x 94
+               blocks of 512 in float32 and float64 and fused (low-cut and
+               delay in one FIR on K1), each against the CPU path in
+               float64 with its launches per block, no plain version
+               called, ms per block, real-time factor and device time;
+               Freeverb, the FDN and the Delay (retargeted mid-stream) as
+               one-shot renders at 8 x 48128; direct, convolve, the
+               overlap convolvers streamed, correlate (the peak lags) and
+               deconvolve by all three methods at 8 x 48128, and direct
+               under cuDNN's TF32 default; R1-R3's times and bounds;
+ 12. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -975,6 +990,516 @@ def analysis_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> Non
     print(f"analysis launches by path: "
           f"{json.dumps({p: {n: k['by_path'].get(p, 0) for n, k in kernels.items() if k['by_path'].get(p, 0)} for p in ('analysis_stream', 'analysis_oneshot', 'analysis_multirate', 'analysis_stft', 'analysis_hilbert', 'analysis_noise')})}"
           f"; phase {time.perf_counter() - t_an:.2f} s")
+
+
+# The space send chain at full width: a low-cut, then the feedback delay
+# (0.25 s, feedback 0.35, mix 0.25), Freeverb and the FDN reverb (the
+# registry's defaults), the user's reverb sends on the chain cell's 64 ch
+# at 48 kHz. Chain.fuse_lti folds runs of two or more LTI nodes (as the
+# JAX chain does), so the low-cut in front of the delay is what lets the
+# delay's echo train fold, with it, into one FIR (K1) in the fused form.
+SPACE_GRAPH = {
+    "nodes": [
+        {"id": "lowcut", "type": "filter-highpass",
+         "params": {"family": "butterworth", "freq": 120, "order": 2}},
+        {"id": "echo", "type": "delay",
+         "params": {"time": 0.25, "feedback": 0.35, "mix": 0.25}},
+        {"id": "room", "type": "reverb-freeverb", "params": {}},
+        {"id": "hall", "type": "reverb-fdn", "params": {}}],
+    "connections": [{"from": "_input", "to": "lowcut"},
+                    {"from": "lowcut", "to": "echo"},
+                    {"from": "echo", "to": "room"},
+                    {"from": "room", "to": "hall"},
+                    {"from": "hall", "to": "_output"}]}
+# Bars of the space phase: the kernels against their plain versions on the
+# card, float32 >= 100 dB and float64 >= 200 dB (the JAX tests' bars for
+# these effects are float64 parity). Every path against the port's CPU
+# path in float64: float64 >= 200 dB; float32 >= 100 dB, or no more than
+# 6 dB below the CPU path's own float32 reading where that is lower (the
+# rule the port's CPU tests hold the reference's float32 class to: in
+# 512-sample blocks the FDN accumulates its LFO phase in float32 a sample
+# at a time, and a retargeted Delay's read positions round at its
+# 96,128-sample ring's magnitude).
+SPACE_DB = {"float32": 100.0, "float64": 200.0}
+
+
+def space_bar32(cpu32: float) -> float:
+    """The float32 bar of a path whose CPU float32 run reads cpu32 dB
+    against its CPU float64 run."""
+    return min(SPACE_DB["float32"], cpu32 - 6.0)
+# Operations per sample, counting sin and floor as one each (so the
+# operation bound is a floor): R1 the position (3), its floor and
+# fraction (2), the interpolation (4), the write (2) and the mix (3); R2
+# eight combs (7 each: the one-pole's 3, the squelch's 2, the write's 2)
+# with their sum (8), four allpasses (3 each), the input gain and the mix
+# (4); R3 eight lines (12 each: the LFO's 4, the delay's 2, position and
+# fraction 3, interpolation 3), their sum and the output (10), the
+# Hadamard (120), eight dampings (3) and writes (3).
+R_SAMPLE_OPS = {"delay_feedback": 14, "freeverb_feedback": 80,
+                "fdn_feedback": 96 + 10 + 120 + 24 + 24}
+
+
+def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
+    """Phase 11: the delay feedback and reverb slice on the card. R1-R3
+    against their plain versions on the card (C = 65, the chain block, a
+    ragged length, lags under 130 and under a chunk, float32 and float64,
+    two calls bit-equal to one); SPACE_GRAPH streamed over 64 ch x 94
+    blocks of 512 (float32 and float64) and fused (float32) against the
+    CPU path in float64, with launches per block, no plain version called,
+    ms per block, real-time factor and the profiler's device time; the
+    one-shot renders at 8 x 48128; the conv items at 8 x 48128 with the
+    cuDNN TF32 check; R1-R3's times beside their bounds. R1-R3 join the
+    `kernels` line."""
+    from algodsp_tpu_torch import conv
+    from algodsp_tpu_torch.chain import Chain
+    from algodsp_tpu_torch.effects.delay_effect import Delay
+    from algodsp_tpu_torch.effects.reverb import FDNReverb, Freeverb
+    from algodsp_tpu_torch.ops import dynfb, feedback
+
+    t_ph = time.perf_counter()
+    names = ("delay_feedback", "freeverb_feedback", "fdn_feedback")
+    earlier = list(next(iter(kernels.values()))["by_path"])
+    replaces = {
+        "delay_feedback": "algodsp_tpu/effects/delay_effect.py:72-157 "
+                          "(Delay._sample_scan, _ring_blocks, _linear_blocks; "
+                          "lax.scans, no Pallas)",
+        "freeverb_feedback": "algodsp_tpu/effects/reverb/freeverb.py:82-151 "
+                             "(Freeverb._block_step, _sample_scan; lax.scans, "
+                             "no Pallas)",
+        "fdn_feedback": "algodsp_tpu/effects/reverb/fdn.py:166-253 "
+                        "(FDNReverb._block_step, _sample_scan; lax.scans, no "
+                        "Pallas)"}
+    for name in names:
+        kernels[name] = {"route": "cuda",
+                         "source": "algodsp_tpu_torch/csrc/feedback.cu",
+                         "replaces": replaces[name],
+                         "wrapper": getattr(feedback, name), "errs": [],
+                         "by_path": {p: 0 for p in earlier}}
+    plain = [(feedback, n) for n in (
+        "delay_feedback_plain", "delay_scan_plain", "freeverb_feedback_plain",
+        "freeverb_scan_plain", "fdn_feedback_plain", "fdn_step_plain")]
+    rng = np.random.default_rng(13)
+    dtypes = (torch.float32, torch.float64)
+    dname = lambda dt: str(dt)[6:]
+    block_ms = CHAIN_BLOCK / SR * 1e3
+
+    def tensors(st):
+        """A state's tensors in a fixed order."""
+        if torch.is_tensor(st):
+            return [st]
+        if isinstance(st, dict):
+            return [t for k in sorted(st) for t in tensors(st[k])]
+        return [t for v in st for t in tensors(v)]
+
+    def clone(st):
+        if torch.is_tensor(st):
+            return st.clone()
+        if isinstance(st, dict):
+            return {k: clone(v) for k, v in st.items()}
+        return [clone(v) for v in st]
+
+    def compare(a, b):
+        """(bit-equal, SNR of b's floats against a's, max |err|, integer
+        parts equal) of two states or outputs."""
+        ta, tb = tensors(a), tensors(b)
+        fa = [host(t).ravel() for t in ta if t.is_floating_point()]
+        fb = [host(t).ravel() for t in tb if t.is_floating_point()]
+        ints = all(bool(torch.equal(u.cpu(), v.cpu())) for u, v in zip(ta, tb)
+                   if not u.is_floating_point())
+        bit = ints and all(bits_equal(torch, u, v) for u, v in zip(ta, tb)
+                           if u.is_floating_point())
+        fa, fb = np.concatenate(fa), np.concatenate(fb)
+        return bit, snr_db(fa, fb), float(np.max(np.abs(fa - fb))), ints
+
+    def driven(path, fn, allowed):
+        """fn() with every launch counter at 0 before and read after, the
+        plain versions' calls counted (none may be called); the launches
+        go to `by_path`."""
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        with plain_calls(plain) as plain_n:
+            out = fn()
+            torch.cuda.synchronize()
+        launches = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n, k in kernels.items():
+            k["by_path"][path] = launches[n]
+        used = {n: v for n, v in launches.items() if v}
+        assert not any(plain_n.values()), (path, plain_n)
+        assert set(used) <= set(allowed), (path, used)
+        return out, used
+
+    # -- R1-R3 against their plain versions on the card ---------------------
+    def noise(*shape, scale=0.3):
+        return scale * rng.standard_normal(shape)
+
+    def delay_state(dl, c, dtype, write):
+        st = dl.init_state((c,), dtype, dev)
+        st["buf"] = torch.as_tensor(noise(c, dl.buf_len), dtype=dtype, device=dev)
+        st["write"] = torch.tensor(write, dtype=torch.int32, device=dev)
+        return st
+
+    def freeverb_state(fv, c, dtype, step):
+        st = fv.init_state((c,), dtype, dev)
+        return {"combs": [torch.as_tensor(noise(*r.shape), dtype=dtype, device=dev)
+                          for r in st["combs"]],
+                "filter_store": torch.as_tensor(noise(c, 8, scale=0.05),
+                                                dtype=dtype, device=dev),
+                "allpasses": [torch.as_tensor(noise(*r.shape), dtype=dtype,
+                                              device=dev) for r in st["allpasses"]],
+                "step": torch.tensor(step, dtype=torch.int32, device=dev)}
+
+    def fdn_state(rv, c, dtype, step, lfo):
+        st = rv.init_state((c,), dtype, dev)
+        return {"lines": torch.as_tensor(noise(c, 8, rv.line_len), dtype=dtype,
+                                         device=dev),
+                "pre": torch.as_tensor(noise(c, rv.pre_len), dtype=dtype, device=dev),
+                "filter": torch.as_tensor(noise(c, 8, scale=0.05), dtype=dtype,
+                                          device=dev),
+                "lfo_phase": torch.tensor(lfo, dtype=dtype, device=dev),
+                "step": torch.tensor(step, dtype=torch.int32, device=dev)}
+
+    def delay_pair(dl, st, x, target=None):
+        cur = dl.trajectory(st["current"], x.shape[-1], target)
+        return (lambda s: feedback.delay_feedback(dl, s["buf"], s["write"], x, cur),
+                lambda s: feedback.delay_feedback_plain(dl, s["buf"], s["write"],
+                                                        x, cur))
+
+    def fdn_pair(rv, x):
+        inp = x * 0.5 + 0.1          # any pre-delayed input
+        args = lambda s: (rv, s["lines"], s["filter"], s["lfo_phase"], s["step"],
+                          x, inp)
+        return (lambda s: feedback.fdn_feedback(*args(s)),
+                lambda s: feedback.fdn_feedback_plain(*args(s)))
+
+    fv_chain = Freeverb()
+    rv_chain = FDNReverb(SR, wet=0.22, damp=0.45)     # the node's defaults
+    dl_chain = Delay(SR)
+    dl_96, dl_24 = Delay(SR, delay_seconds=0.002), Delay(SR, delay_seconds=0.0005)
+    cases = []
+    for dt in dtypes:
+        xc = lambda c, n, dt=dt: torch.as_tensor(noise(c, n, scale=1.0), dtype=dt,
+                                                 device=dev)
+        cases += [
+            ("delay_feedback", dt, "chain block 64x512, aligned cursor",
+             delay_state(dl_chain, CHAIN_CH, dt, 1024), dl_chain, xc(CHAIN_CH, CHAIN_BLOCK)),
+            ("delay_feedback", dt, "C=65 N=1000, cursor 777 (linear extension, "
+             "tail, rotation)", delay_state(dl_chain, 65, dt, 777), dl_chain,
+             xc(65, 1000)),
+            ("delay_feedback", dt, "C=65 N=512, lag 96 (per-sample tier)",
+             delay_state(dl_96, 65, dt, 5), dl_96, xc(65, 512)),
+            ("delay_feedback", dt, "C=65 N=300, lag 24 (one lane a chunk)",
+             delay_state(dl_24, 65, dt, 96000), dl_24, xc(65, 300)),
+            ("freeverb_feedback", dt, "chain block 64x512",
+             freeverb_state(fv_chain, CHAIN_CH, dt, 1000), fv_chain,
+             xc(CHAIN_CH, CHAIN_BLOCK)),
+            ("freeverb_feedback", dt, "C=65 N=333 (blocks and a tail)",
+             freeverb_state(fv_chain, 65, dt, 5), fv_chain, xc(65, 333)),
+            ("fdn_feedback", dt, "chain block 64x512 (per-sample form)",
+             fdn_state(rv_chain, CHAIN_CH, dt, 3000, 1.3), rv_chain,
+             xc(CHAIN_CH, CHAIN_BLOCK)),
+            ("fdn_feedback", dt, "C=65 N=2500 (two blocks and a tail)",
+             fdn_state(rv_chain, 65, dt, 77, 6.2), rv_chain, xc(65, 2500)),
+        ]
+    for name, dt, label, st0, fx, x in cases:
+        if name == "delay_feedback":
+            run_k, run_p = delay_pair(fx, st0, x)
+        elif name == "freeverb_feedback":
+            run_k = lambda s, fx=fx, x=x: feedback.freeverb_feedback(fx, s, x)
+            run_p = lambda s, fx=fx, x=x: feedback.freeverb_feedback_plain(fx, s, x)
+        else:
+            run_k, run_p = fdn_pair(fx, x)
+        out_k = run_k(clone(st0))
+        out_p = run_p(clone(st0))
+        out_k2 = run_k(clone(st0))
+        torch.cuda.synchronize()
+        bit, snr, err, ints = compare(out_p, out_k)
+        again = compare(out_k, out_k2)[0]
+        y_snr = snr_db(host(out_p[-1]), host(out_k[-1]))
+        ok = ints and again and (bit or (snr >= SPACE_DB[dname(dt)]
+                                         and y_snr >= SPACE_DB[dname(dt)]))
+        kernels[name]["errs"].append(err)
+        print(f"space check {name} {dname(dt)} {label}: vs plain on the card "
+              f"{'bit-equal' if bit else f'y SNR {y_snr:.1f} dB, state and y SNR {snr:.1f} dB'}"
+              f", max|err| {err:.3e}, integers equal {ints}, second call "
+              f"bit-equal {again} {'ok' if ok else 'FAILED'}")
+        assert ok, (name, label)
+
+    # two calls bit-equal to one, split where the reference's forms
+    # coincide (Delay 512 + 512 on the aligned ring, Freeverb and the FDN
+    # at an internal block boundary), so that the CPU path holds too
+    for dt in dtypes:
+        xs2 = torch.as_tensor(noise(CHAIN_CH, 2048, scale=1.0), dtype=dt, device=dev)
+        for name, fx, st0, cut, n in (
+                ("delay_feedback", dl_chain, delay_state(dl_chain, CHAIN_CH, dt, 0),
+                 512, 1024),
+                ("freeverb_feedback", fv_chain, freeverb_state(fv_chain, CHAIN_CH, dt, 9),
+                 384, 1000),
+                ("fdn_feedback", rv_chain, fdn_state(rv_chain, CHAIN_CH, dt, 11, 0.4),
+                 1024, 2048)):
+            s1, y1 = fx.process(clone(st0), xs2[:, :n])
+            s2, ya = fx.process(clone(st0), xs2[:, :cut])
+            s2, yb = fx.process(s2, xs2[:, cut:n])
+            bit = compare(s1, s2)[0] and bits_equal(torch, y1, torch.cat([ya, yb], -1))
+            print(f"space check {name} {dname(dt)} two calls ({cut} + {n - cut}) "
+                  f"bit-equal to one ({n}): {bit} {'ok' if bit else 'FAILED'}")
+            assert bit, name
+
+    # -- the space chain: 64 ch x 94 blocks of 512 ----------------------------
+    n_chain = CHAIN_BLOCKS * CHAIN_BLOCK
+    burst = np.repeat(rng.uniform(0.0, 1.0, (CHAIN_CH, -(-n_chain // 4800))) > 0.6,
+                      4800, axis=1)[:, :n_chain]
+    xs_np = (rng.standard_normal((CHAIN_CH, n_chain)) * burst).astype(np.float32)
+    raw = json.dumps(SPACE_GRAPH)
+    ch_cpu = Chain(SR)
+    assert ch_cpu.load_graph(raw, auto_fuse=False) == []
+    t0 = time.perf_counter()
+    _, y_cpu = ch_cpu.process_blocks(
+        ch_cpu.init_state((CHAIN_CH,), torch.float64, "cpu"),
+        torch.as_tensor(xs_np, dtype=torch.float64))
+    cpu_s = time.perf_counter() - t0
+    y_cpu = y_cpu.numpy()
+    _, y_cpu32 = ch_cpu.process_blocks(
+        ch_cpu.init_state((CHAIN_CH,), torch.float32, "cpu"), torch.as_tensor(xs_np))
+    cpu32 = snr_db(y_cpu, y_cpu32.numpy())
+    bars = {torch.float32: space_bar32(cpu32), torch.float64: SPACE_DB["float64"]}
+    space_ms = {}
+    for dt in dtypes:
+        path = f"space_chain_{dname(dt)}"
+        ch = Chain(SR)
+        assert ch.load_graph(raw, auto_fuse=False) == []
+        xs = torch.as_tensor(xs_np, dtype=dt, device=dev)
+        st = ch.init_state((CHAIN_CH,), dt, dev)
+        (_, ys), used = driven(path, lambda: ch.process_blocks(st, xs), names)
+        assert used == {n: CHAIN_BLOCKS for n in names}, used
+        yh = host(ys)
+        assert yh.shape == (CHAIN_CH, n_chain) and np.all(np.isfinite(yh))
+        s = snr_db(y_cpu, yh)
+        print(f"space {path} {CHAIN_CH}x{n_chain} ({CHAIN_BLOCKS} blocks): "
+              f"launches per block {json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}"
+              f", plain versions called 0; vs the CPU path in float64 (its "
+              f"{cpu_s:.2f} s; its float32 run {cpu32:.1f} dB) SNR {s:.1f} dB "
+              f"(bar >= {bars[dt]:.1f}) {'ok' if s >= bars[dt] else 'FAILED'}")
+        assert s >= bars[dt], path
+        st_t = ch.init_state((CHAIN_CH,), dt, dev)
+        space_ms[dt] = time_ms(torch, lambda: ch.process_blocks(st_t, xs), reps=3,
+                               warmup=1) / CHAIN_BLOCKS
+        act = device_activity(torch, lambda: ch.process(st_t, xs[:, :CHAIN_BLOCK]),
+                              10, ("delay_feedback_", "freeverb_", "fdn_"))
+        parts = ", ".join(f"{k} {t:.4f}" for k, t in act["by_name"].items())
+        busy = ("device time not measured" if act["ms"] is None else
+                f"device {act['ms']:.4f} ms a block in {act['count']:.0f} kernels "
+                f"and copies ({parts}), busy {100 * act['ms'] / space_ms[dt]:.1f}% "
+                f"of the wall (profiler; {act['dropped']} records in one session "
+                f"only)")
+        print(f"time {path} per block ({CHAIN_CH}x{CHAIN_BLOCK}, mean over 3 x "
+              f"{CHAIN_BLOCKS} blocks of process_blocks): {space_ms[dt]:.4f} ms, "
+              f"real-time factor {block_ms / space_ms[dt]:.2f}; {busy} ({gpu})")
+    # the same graph with the fusion pass: low-cut and delay in one FIR (K1)
+    ch_f = Chain(SR)
+    report = ch_f.load_graph(raw)
+    assert len(report) == 1 and report[0][0] == ["lowcut", "echo"], report
+    xs = torch.as_tensor(xs_np, device=dev)
+    st_f = ch_f.init_state((CHAIN_CH,), torch.float32, dev)
+    (_, yf), used = driven("space_chain_fused", lambda: ch_f.process_blocks(st_f, xs),
+                           ("fdl_conv", "freeverb_feedback", "fdn_feedback"))
+    assert used == {"fdl_conv": CHAIN_BLOCKS, "freeverb_feedback": CHAIN_BLOCKS,
+                    "fdn_feedback": CHAIN_BLOCKS}, used
+    s = snr_db(y_cpu, host(yf))
+    fused_ms = time_ms(torch, lambda: ch_f.process_blocks(st_f, xs), reps=1,
+                       warmup=0) / CHAIN_BLOCKS
+    print(f"space space_chain_fused float32 (fusion report {report}): launches "
+          f"per block {json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}, "
+          f"plain versions called 0; vs the unfused CPU path in float64 SNR "
+          f"{s:.1f} dB (bar >= {bars[torch.float32]:.1f}) "
+          f"{'ok' if s >= bars[torch.float32] else 'FAILED'}; "
+          f"{fused_ms:.4f} ms a block, real-time factor {block_ms / fused_ms:.2f} "
+          f"({gpu})")
+    assert s >= bars[torch.float32]
+
+    # -- one-shot renders at 8 x 48128 --------------------------------------
+    x_np = rng.standard_normal((CHANNELS, N_FLAGSHIP)) * 0.5
+    half = N_FLAGSHIP // 2
+
+    def delay_render(fx, st, x):
+        st, ya = fx.process(st, x[..., :half])
+        st, yb = fx.process(st, x[..., half:], target_delay_samples=0.1 * SR)
+        return st, torch.cat([ya, yb], dim=-1)
+
+    renders = [
+        ("freeverb", "Freeverb.process", Freeverb,
+         lambda fx, st, x: fx.process(st, x), "freeverb_feedback"),
+        ("fdn", "FDNReverb.process", lambda: FDNReverb(SR),
+         lambda fx, st, x: fx.process(st, x), "fdn_feedback"),
+        ("fdn_blocks", "FDNReverb.process_blocks", lambda: FDNReverb(SR),
+         lambda fx, st, x: fx.process_blocks(st, x), "fdn_feedback"),
+        ("delay", "Delay.process, retarget to 0.1 s mid-stream",
+         lambda: Delay(SR), delay_render, "delay_feedback")]
+    for key, label, make, run, name in renders:
+        fx = make()
+        _, y_ref = run(fx, fx.init_state((CHANNELS,), torch.float64, "cpu"),
+                       torch.as_tensor(x_np))
+        y_ref = y_ref.numpy()
+        _, y32 = run(fx, fx.init_state((CHANNELS,), torch.float32, "cpu"),
+                     torch.as_tensor(x_np, dtype=torch.float32))
+        cpu32 = snr_db(y_ref, y32.numpy())
+        bars = {torch.float32: space_bar32(cpu32), torch.float64: SPACE_DB["float64"]}
+        for dt in dtypes:
+            xr = torch.as_tensor(x_np, dtype=dt, device=dev)
+            path = f"render_{key}_{dname(dt)}"
+            (_, yr), used = driven(path, lambda: run(fx, fx.init_state(
+                (CHANNELS,), dt, dev), xr), names)
+            n_exp = 2 if name == "delay_feedback" else 1
+            assert used == {name: n_exp}, used
+            s = snr_db(y_ref, host(yr))
+            ms = time_ms(torch, lambda: run(fx, fx.init_state((CHANNELS,), dt, dev), xr),
+                         reps=3, warmup=1)
+            print(f"space render {label} {CHANNELS}x{N_FLAGSHIP} {dname(dt)}: "
+                  f"{name} launches {used[name]}, vs the CPU path in float64 SNR "
+                  f"{s:.1f} dB (bar >= {bars[dt]:.1f}; the CPU path's float32 "
+                  f"{cpu32:.1f}) {'ok' if s >= bars[dt] else 'FAILED'}; "
+                  f"{ms:.4f} ms, {N_FLAGSHIP / SR * 1e3 / ms:.1f}x real time ({gpu})")
+            assert s >= bars[dt], (label, dt)
+
+    # -- the conv items at 8 x 48128 ------------------------------------------
+    xc_np = rng.standard_normal((CHANNELS, N_FLAGSHIP))
+    h31, h32, h1000 = (rng.standard_normal(m) * 0.3 for m in (31, 32, 1000))
+    tmpl = rng.standard_normal(4800)
+    lags = 3000 + 5000 * np.arange(CHANNELS)
+    xcor_np = xc_np.copy()
+    for c, lag in enumerate(lags):
+        xcor_np[c, lag:lag + tmpl.size] += 3.0 * tmpl
+    h_dec = 0.8 ** np.arange(64)
+    y_dec_np = np.stack([np.convolve(r, h_dec) for r in xc_np])
+
+    def streamed(make, x, blk):
+        cv = make()
+        st = cv.init_state(x.shape[:-1], x.dtype, x.device)
+        ys = []
+        for b in range(x.shape[-1] // blk):
+            st, yb = cv.process_stream(st, x[..., b * blk:(b + 1) * blk])
+            ys.append(yb)
+        return torch.cat(ys, dim=-1)
+
+    # (label, input, function of the input on a device in a type)
+    items = [
+        ("direct 31 taps", xc_np, lambda x: conv.direct(x, h31)),
+        ("convolve 31 taps (direct)", xc_np, lambda x: conv.convolve(x, h31)),
+        ("convolve 32 taps (FFT)", xc_np, lambda x: conv.convolve(x, h32)),
+        (f"OverlapSave 1000 taps streamed over {CHAIN_BLOCKS} blocks", xc_np,
+         lambda x: streamed(lambda: conv.OverlapSave(h1000), x, CHAIN_BLOCK)),
+        (f"OverlapAdd 1000 taps streamed over {CHAIN_BLOCKS} blocks", xc_np,
+         lambda x: streamed(lambda: conv.OverlapAdd(h1000, CHAIN_BLOCK), x,
+                            CHAIN_BLOCK)),
+        ("correlate 4800-sample template", xcor_np,
+         lambda x: conv.correlate(x, tmpl)),
+    ] + [(f"deconvolve {m.value}", y_dec_np,
+          lambda y, m=m: conv.deconvolve(y, h_dec, conv.DeconvOptions(method=m)))
+         for m in conv.DeconvMethod]
+    for label, x_in, fn in items:
+        ref = host(fn(torch.as_tensor(x_in)))
+        cpu32 = snr_db(ref, host(fn(torch.as_tensor(x_in, dtype=torch.float32))))
+        got = {}
+        for dt in dtypes:
+            xd = torch.as_tensor(x_in, dtype=dt, device=dev)
+            out = fn(xd)
+            got[dt] = snr_db(ref, host(out))
+            if label.startswith("correlate"):
+                idx, _ = conv.find_peak(out)
+                found = host(conv.lag_from_index(idx, tmpl.size))
+                assert np.array_equal(found, lags), (found, lags)
+            if dt == torch.float32:
+                ms = time_ms(torch, lambda: fn(xd), reps=3)
+        bar32 = cpu32 - 6.0
+        ok = got[torch.float32] >= bar32 and got[torch.float64] >= 200.0
+        print(f"space conv {label} {CHANNELS}x{x_in.shape[-1]}: vs the CPU path "
+              f"in float64, float32 {got[torch.float32]:.1f} dB (bar >= "
+              f"{bar32:.1f}: the CPU path's float32 {cpu32:.1f} less 6), float64 "
+              f"{got[torch.float64]:.1f} dB (bar >= 200)"
+              + (f", peak lags {lags.tolist()} found"
+                 if label.startswith("correlate") else "")
+              + f" {'ok' if ok else 'FAILED'}; float32 {ms:.4f} ms ({gpu})")
+        assert ok, label
+    # cuDNN's TF32 default: direct bit-equal under allow_tf32 True and False,
+    # the caller's setting restored
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    xt = torch.as_tensor(xc_np, dtype=torch.float32, device=dev)
+    outs = {}
+    try:
+        for flag in (True, False):
+            cudnn.allow_tf32 = flag
+            outs[flag] = conv.direct(xt, h31)
+            assert cudnn.allow_tf32 is flag
+    finally:
+        cudnn.allow_tf32 = saved
+    same = bits_equal(torch, outs[True], outs[False])
+    print(f"space TF32 check: direct 31 taps float32 bit-equal under "
+          f"cudnn.allow_tf32 True and False: {same}, the setting restored "
+          f"{'ok' if same else 'FAILED'}")
+    assert same
+
+    # -- R1-R3's times beside their bounds -------------------------------------
+    mhz = dynfb.sm_clock_mhz()
+    cycles = {"freeverb_feedback": feedback.damp_step_cycles(fv_chain.damp, True),
+              "fdn_feedback": feedback.damp_step_cycles(rv_chain.damp, False)}
+    xg = torch.as_tensor(noise(CHAIN_CH, CHAIN_BLOCK, scale=1.0), dtype=torch.float32,
+                         device=dev)
+    ig = xg * 0.5
+    st_d = delay_state(dl_chain, CHAIN_CH, torch.float32, 0)
+    cur = dl_chain.trajectory(st_d["current"], CHAIN_BLOCK)
+    st_v = freeverb_state(fv_chain, CHAIN_CH, torch.float32, 0)
+    st_r = fdn_state(rv_chain, CHAIN_CH, torch.float32, 0, 0.0)
+    calls = {
+        "delay_feedback": (
+            lambda: feedback.delay_feedback(dl_chain, st_d["buf"], st_d["write"], xg, cur),
+            lambda: feedback.delay_feedback_plain(dl_chain, st_d["buf"], st_d["write"],
+                                                  xg, cur)),
+        "freeverb_feedback": (
+            lambda: feedback.freeverb_feedback(fv_chain, st_v, xg),
+            lambda: feedback.freeverb_feedback_plain(fv_chain, st_v, xg)),
+        "fdn_feedback": (
+            lambda: feedback.fdn_feedback(rv_chain, st_r["lines"], st_r["filter"],
+                                          st_r["lfo_phase"], st_r["step"], xg, ig),
+            lambda: feedback.fdn_feedback_plain(rv_chain, st_r["lines"],
+                                                st_r["filter"], st_r["lfo_phase"],
+                                                st_r["step"], xg, ig))}
+    # bytes: x (and the FDN's pre-delayed input) read, y written, each ring
+    # slot the walk reads (N + 1 a ring) and writes (N), the lag trajectory
+    slots = {"delay_feedback": 1, "freeverb_feedback": 12, "fdn_feedback": 8}
+    for name, (call, plain_call) in calls.items():
+        k = kernels[name]
+        c, n = CHAIN_CH, CHAIN_BLOCK
+        nbytes = 4.0 * (c * n * (2 + (name == "fdn_feedback"))
+                        + c * slots[name] * (2 * n + 1)
+                        + (n if name == "delay_feedback" else 0))
+        k["ms_at"] = (f"per space-chain block, {c} x {n} float32 (the graph's "
+                      f"node)")
+        k["ms"] = graph_ms(torch, call, 20)
+        k["call_ms"] = time_ms(torch, call, 20)
+        k["plain_ms"] = time_ms(torch, plain_call, 1, warmup=0)
+        k["bound_ms"], k["bound_by"] = bound(nbytes, float(R_SAMPLE_OPS[name] * c * n))
+        k["library_ms"] = None
+        chain_txt = ""
+        if name in cycles:
+            k["step_cycles"] = {"float32": cycles[name]}
+            k["sm_mhz"] = mhz
+            k["chain_bound_ms"] = {"space block float32": n * cycles[name] / mhz * 1e-3}
+            cb = k["chain_bound_ms"]["space block float32"]
+            chain_txt = (f", chain bound {cb:.6f} ms ({n} damping steps x "
+                         f"{cycles[name]:.1f} cycles / {mhz:.0f} MHz, "
+                         f"{100 * cb / k['ms']:.1f}% of the kernel)")
+        print(f"time {name} {k['ms_at']}: kernel {k['ms']:.4f} ms (graph replay; "
+              f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}, "
+              f"{100 * k['bound_ms'] / k['ms']:.1f}% of the kernel){chain_txt}, "
+              f"plain {k['plain_ms']:.4f} ms, library none ({gpu})")
+    for name in names:
+        kernels[name]["launches"] = sum(kernels[name]["by_path"].values())
+    print(f"space launches by path: "
+          f"{json.dumps({n: {p: v for p, v in kernels[n]['by_path'].items() if v} for n in names})}"
+          f"; phase {time.perf_counter() - t_ph:.2f} s")
+    assert all(kernels[n]["by_path"].get("space_chain_float32") == CHAIN_BLOCKS
+               for n in names)
 
 
 def main() -> int:
@@ -3401,7 +3926,12 @@ def main() -> int:
     assert kernels["envelope"]["by_path"]["analysis_stream"] == CHAIN_BLOCKS
     assert kernels["biquad_cascade"]["by_path"]["analysis_hilbert"] > 0
 
-    # -- 11. kernel list ----------------------------------------------------------
+    # -- 11. space: delay feedback and reverb through the chain (R1-R3) ------------
+    space_phase(torch, dev, gpu, kernels, plain_calls)
+    for name, k in kernels.items():
+        k["launches"] = sum(k["by_path"].values())
+
+    # -- 12. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],

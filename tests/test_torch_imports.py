@@ -8,8 +8,9 @@
   never fall back to their plain versions. The cascade (zero state),
   envelope, FDL and Moog calls go through their autograd Functions; the
   calls with no backward on the card (the explicit-state cascade, the raw
-  envelope kernel, the feedback dynamics detector D1) refuse a tensor
-  that requires grad instead of cutting the gradient.
+  envelope kernel, the feedback dynamics detector D1, the delay and
+  reverb feedback loops R1-R3) refuse a tensor that requires grad
+  instead of cutting the gradient.
 """
 
 import ast
@@ -24,11 +25,14 @@ import torch
 import algodsp_tpu_torch
 from algodsp_tpu_torch import _build, convert, core, resample, signal, spectrum, window
 from algodsp_tpu_torch.chain import Chain
-from algodsp_tpu_torch.conv import PartitionedConvolver, conv
+from algodsp_tpu_torch.conv import OverlapAdd, OverlapSave, PartitionedConvolver, conv
+from algodsp_tpu_torch.effects.delay_effect import Delay
 from algodsp_tpu_torch.effects.dynamics import Compressor
+from algodsp_tpu_torch.effects.reverb import FDNReverb, Freeverb
 from algodsp_tpu_torch.filters import BiquadChain, bank
 from algodsp_tpu_torch.filters.moog import MoogFilter
 from algodsp_tpu_torch.ops import biquad_cascade as bq, dynfb, envscan, fdlconv, moog
+from algodsp_tpu_torch.ops import feedback
 from algodsp_tpu_torch.pipeline import flagship_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,7 +58,12 @@ def test_import_leaves_jax_out():
             "algodsp_tpu_torch.spectrum.goertzel", "algodsp_tpu_torch.spectrum.stft",
             "algodsp_tpu_torch.signal.generate", "algodsp_tpu_torch.filters.bank",
             "algodsp_tpu_torch.filters.hilbert",
-            "algodsp_tpu_torch.resample.resample"} <= set(modules)
+            "algodsp_tpu_torch.resample.resample", "algodsp_tpu_torch.ops.ring",
+            "algodsp_tpu_torch.ops.feedback", "algodsp_tpu_torch.effects.delay_effect",
+            "algodsp_tpu_torch.effects.reverb.freeverb",
+            "algodsp_tpu_torch.effects.reverb.fdn", "algodsp_tpu_torch.conv.overlap",
+            "algodsp_tpu_torch.conv.correlate",
+            "algodsp_tpu_torch.conv.deconvolve"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -119,6 +128,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda device=None: bank.MultirateOctaveAnalyzer(1, 48000.0).init_state(
             (2,), device=device),
         lambda device=None: resample.Resampler(1, 2).init_state((2,), device=device),
+        lambda device=None: Delay(48000.0).init_state((2,), device=device),
+        lambda device=None: Freeverb().init_state((2,), device=device),
+        lambda device=None: FDNReverb(48000.0).init_state((2,), device=device),
+        lambda device=None: OverlapSave(np.ones(8)).init_state((2,), device=device),
+        lambda device=None: OverlapAdd(np.ones(8), 16).init_state((2,), device=device),
     ]
     for call in calls + analysis:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -164,8 +178,14 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(moog, "moog_ladder_plain", plain_called)
     monkeypatch.setattr(moog, "moog_zdf_plain", plain_called)
     monkeypatch.setattr(dynfb, "dynamics_feedback_plain", plain_called)
+    for name in ("delay_feedback_plain", "freeverb_feedback_plain",
+                 "fdn_feedback_plain"):
+        monkeypatch.setattr(feedback, name, plain_called)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
     fb = Compressor(48000.0).core.feedback_params()
+    for call in _feedback_calls(_FakeCuda):
+        with pytest.raises(RuntimeError, match="no kernel library feedback"):
+            call()
     with pytest.raises(RuntimeError, match="no kernel library dynamics"):
         dynfb.dynamics_feedback(_FakeCuda(2, 256), _FakeCuda(2), _FakeCuda(2),
                                 fb)
@@ -183,8 +203,27 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
         moog.moog_zdf(_FakeCuda(2, 256), _FakeCuda(8, 2), params)
     for wrapper in (bq.biquad_cascade, envscan.envelope_scan_kernel,
                     fdlconv.fdl_conv, moog.moog_ladder, moog.moog_zdf,
-                    dynfb.dynamics_feedback):
+                    dynfb.dynamics_feedback, feedback.delay_feedback,
+                    feedback.freeverb_feedback, feedback.fdn_feedback):
         assert isinstance(wrapper.launches, int)
+
+
+def _feedback_calls(make, x_grad=False):
+    """R1-R3's wrappers on (fake) CUDA tensors made by make(*shape, ...);
+    x requires grad where x_grad."""
+    dl, fv, rv = Delay(48000.0), Freeverb(), FDNReverb(48000.0)
+    x = lambda: make(2, 256, requires_grad=x_grad)
+    fv_state = lambda: {"combs": [make(2, n) for n in (1116, 1188, 1277, 1356,
+                                                        1422, 1491, 1557, 1617)],
+                        "filter_store": make(2, 8),
+                        "allpasses": [make(2, n) for n in (556, 441, 341, 225)],
+                        "step": make()}
+    return [
+        lambda: feedback.delay_feedback(dl, make(2, dl.buf_len), make(), x(),
+                                        make(256)),
+        lambda: feedback.freeverb_feedback(fv, fv_state(), x()),
+        lambda: feedback.fdn_feedback(rv, make(2, 8, rv.line_len), make(2, 8),
+                                      make(), make(), x(), make(2, 256))]
 
 
 def test_kernel_wrappers_refuse_grad(monkeypatch):
@@ -221,12 +260,15 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
         lambda: dynfb.dynamics_feedback(_FakeCuda(2, 256), g(2), _FakeCuda(2),
                                         fb),
     ]
-    for call in refused:
+    for call in refused + _feedback_calls(_FakeCuda, x_grad=True):
         with pytest.raises(NotImplementedError, match="no backward on the card"):
             call()
     with torch.no_grad():
         with pytest.raises(RuntimeError, match="no kernel library dynamics"):
             dynfb.dynamics_feedback(g(2, 256), _FakeCuda(2), _FakeCuda(2), fb)
+        for call in _feedback_calls(_FakeCuda, x_grad=True):
+            with pytest.raises(RuntimeError, match="no kernel library feedback"):
+                call()
     launched = [
         ("biquad_cascade", lambda: bq.biquad_cascade(g(2, 256), sos)),
         ("fdlconv", lambda: fdlconv.fdl_conv(g(2, 256), _FakeCuda(3, 129, 2),
@@ -272,6 +314,10 @@ def test_wrappers_refuse_other_devices():
         dynfb.dynamics_feedback(meta, torch.empty(2, device="meta"),
                                 torch.empty(2, device="meta"),
                                 Compressor(48000.0).core.feedback_params())
+    on_meta = lambda *shape, requires_grad=False: torch.empty(shape, device="meta")
+    for call in _feedback_calls(on_meta):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -1,8 +1,9 @@
 """The port against the shared C++ goldens of `native/` (the independent
 float64 oracle that `tests/test_native.py` holds the JAX package to), on
 the CPU in float64: `BiquadChain` on each engine, `FIRFilter`,
-`envelope_scan`, `MoogFilter` in every variant with oversampling, and
-the feed-forward `Compressor`.
+`envelope_scan`, `MoogFilter` in every variant with oversampling, the
+feed-forward `Compressor`, `Freeverb`, `FDNReverb` and the feedback
+`Delay`.
 
 The native wrappers take the JAX package's objects (they read its
 derived constants and test its enums by identity), so each case builds
@@ -10,8 +11,8 @@ the JAX object from the same parameters, passes it to the golden, and
 asserts that the port's object derived the same constants.
 
 Bars are those of tests/test_native.py: > 200 dB for the biquad,
-atol 1e-12 for the FIR and the envelope, > 120 dB for Moog and
-dynamics.
+atol 1e-12 for the FIR and the envelope, > 120 dB for Moog, dynamics,
+the reverbs and the delay.
 """
 
 import dataclasses
@@ -142,3 +143,70 @@ def test_feedforward_compressor_matches_golden(config):
                          _t(x), with_gain=True)
     assert snr_db(y_gold, y.numpy()) > 120
     assert snr_db(g_gold, g.numpy()) > 120
+
+
+def test_freeverb_matches_golden():
+    """Streamed in ragged calls (blocked engine and per-sample tails), the
+    rings and damping states carried on both sides."""
+    from algodsp_tpu.effects.reverb import Freeverb as JFreeverb
+    from algodsp_tpu_torch.effects.reverb import Freeverb
+    kw = dict(wet=0.3, dry=0.7, room_size=0.8, damp=0.4)
+    jf, tf = JFreeverb(**kw), Freeverb(**kw)
+    for name in ("input_gain", "comb_feedback", "allpass_feedback", "damp",
+                 "wet", "dry"):
+        assert getattr(tf, name) == getattr(jf, name), name
+    x = np.random.default_rng(31).standard_normal(1200) * 0.5
+    g_st, g_n, y1 = native.freeverb(jf, x[:461])
+    _, _, y2 = native.freeverb(jf, x[461:], state=g_st, step=g_n)
+    st = tf.init_state((), dtype=torch.float64, device="cpu")
+    st, z1 = tf.process(st, _t(x[:461]))
+    assert int(st["step"]) == g_n
+    assert snr_db(g_st[0], torch.cat(st["combs"]).numpy()) > 120
+    assert snr_db(g_st[2], torch.cat(st["allpasses"]).numpy()) > 120
+    _, z2 = tf.process(st, _t(x[461:]))
+    assert snr_db(np.concatenate([y1, y2]),
+                  np.concatenate([z1.numpy(), z2.numpy()])) > 120
+
+
+def test_fdn_matches_golden():
+    """Blocks of the reference's `_block` and a per-sample tail, the
+    lines, pre-delay, damping and LFO phase carried."""
+    from algodsp_tpu.effects.reverb import FDNReverb as JFDN
+    from algodsp_tpu_torch.effects.reverb import FDNReverb
+    kw = dict(wet=0.4, dry=0.6, rt60_seconds=1.2, damp=0.25,
+              mod_depth_seconds=0.001, mod_rate_hz=0.3)
+    jr, tr = JFDN(SR, **kw), FDNReverb(SR, **kw)
+    for name in ("line_len", "pre_len", "pre_delay", "mod_depth", "gain",
+                 "_block"):
+        assert getattr(tr, name) == getattr(jr, name), name
+    np.testing.assert_array_equal(tr.feedback_gains, jr.feedback_gains)
+    x = np.random.default_rng(32).standard_normal(3000) * 0.5
+    g_st, g_n, y1 = native.fdn(jr, x[:1300])
+    _, _, y2 = native.fdn(jr, x[1300:], state=g_st, step=g_n)
+    st = tr.init_state((), dtype=torch.float64, device="cpu")
+    st, z1 = tr.process(st, _t(x[:1300]))
+    assert snr_db(g_st[0], st["lines"].numpy()) > 120
+    assert abs(float(st["lfo_phase"]) - g_st[3]) < 1e-9
+    _, z2 = tr.process(st, _t(x[1300:]))
+    assert snr_db(np.concatenate([y1, y2]),
+                  np.concatenate([z1.numpy(), z2.numpy()])) > 120
+
+
+def test_delay_effect_matches_golden():
+    """The smoothed lag retargeted mid-stream (`delay.go:140-166`)."""
+    from algodsp_tpu.effects.delay_effect import Delay as JDelay
+    from algodsp_tpu_torch.effects.delay_effect import Delay
+    kw = dict(delay_seconds=0.02, feedback=0.5, mix=0.5, smooth_ms=5.0)
+    jd, td = JDelay(SR, **kw), Delay(SR, **kw)
+    for name in ("delay_samples", "buf_len", "smooth_coeff", "feedback", "mix"):
+        assert getattr(td, name) == getattr(jd, name), name
+    x = np.random.default_rng(123).standard_normal(4096)
+    tgt = 0.03 * SR
+    g, z1 = native.delay_effect(jd, x[:2048])
+    g, z2 = native.delay_effect(jd, x[2048:], state=g, target=tgt)
+    st = td.init_state((), dtype=torch.float64, device="cpu")
+    st, y1 = td.process(st, _t(x[:2048]))
+    st, y2 = td.process(st, _t(x[2048:]), target_delay_samples=tgt)
+    assert abs(float(st["current"]) - g[-1]) < 1e-9
+    assert snr_db(np.concatenate([z1, z2]),
+                  np.concatenate([y1.numpy(), y2.numpy()])) > 120
