@@ -24,8 +24,8 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("biquad_cascade", "dynamics", "envelope", "fdlconv",
-                  "feedback", "moog")
+KERNEL_SOURCES = ("affine", "biquad_cascade", "dynamics", "envelope",
+                  "fdlconv", "feedback", "moog")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

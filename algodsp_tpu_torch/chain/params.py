@@ -12,9 +12,9 @@ reinterpretation of `q` as ripple-dB or bandwidth where applicable).
 Graph JSONs written for the reference load unmodified: its param names
 are primary; this framework's round-1 names stay as aliases.
 
-Counterpart of `algodsp_tpu/chain/params.py`, identical to it except
-that the distortion-mode and Chebyshev-harmonic normalizers wait with
-their node types (ROADMAP.md).
+Counterpart of `algodsp_tpu/chain/params.py`; the distortion-mode and
+Chebyshev-harmonic normalizers return the port's own enums
+(`effects/waveshape.py`).
 """
 
 from __future__ import annotations
@@ -141,6 +141,28 @@ def moog_oversampling_from_order(order: int) -> int:
     if order >= 4:
         return 2
     return 1
+
+
+def normalize_distortion_mode(raw: str):
+    """`normalize.go:104-137`: reference strings -> DistortionMode."""
+    from algodsp_tpu_torch.effects.waveshape import DistortionMode as M
+    table = {
+        "hardclip": M.HARD_CLIP, "hard_clip": M.HARD_CLIP,
+        "tanh": M.TANH,
+        "saturate": M.SATURATE, "saturate2": M.SATURATE2,
+        "softsat": M.SOFT_SAT, "soft_sat": M.SOFT_SAT,
+        "chebyshev": M.CHEBYSHEV,
+        "softclip": M.SOFT_CLIP, "soft_clip": M.SOFT_CLIP,
+    }
+    for i in range(1, 9):
+        table[f"waveshaper{i}"] = M(f"waveshaper{i}")
+    return table.get(raw.strip().lower(), M.SOFT_CLIP)
+
+
+def normalize_chebyshev_harmonic_mode(raw: str):
+    """`normalize.go:150-161`."""
+    from algodsp_tpu_torch.effects.waveshape import ChebyshevHarmonicMode as H
+    return {"odd": H.ODD, "even": H.EVEN}.get(raw.strip().lower(), H.ALL)
 
 
 def normalize_dynamics_topology(raw: str) -> str:

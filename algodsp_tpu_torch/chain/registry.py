@@ -15,9 +15,11 @@ feed-forward or feedback, `dyn-limiter`, `dyn-lookahead`, `dyn-gate`,
 `split-freq` (two output ports: low, high), `delay` (its integer-lag
 echo train as an LTI descriptor, so `Chain.fuse_lti` folds it), the
 reverbs (`reverb`, switching on `model`, `reverb-freeverb`,
-`reverb-fdn`, `reverb-conv`), `delay-simple` and `widener`. Every other type of the JAX package's
-default registry raises KeyError saying that it is not ported yet
-(ROADMAP.md lists them).
+`reverb-fdn`, `reverb-conv`), `delay-simple`, `widener`, the modulation
+family (`chorus`, `flanger`, `ringmod`, `phaser`, `tremolo`) and the
+waveshapers (`bitcrusher`, `distortion`, `dist-cheb`, `transformer`,
+`bass`). Every other type of the JAX package's default registry raises
+KeyError saying that it is not ported yet (ROADMAP.md lists them).
 
 Every runtime is a functional `NodeRuntime`: explicit state,
 `process(state, x, sidechain) -> (state, y)`, and
@@ -34,10 +36,11 @@ import torch
 
 from algodsp_tpu_torch.chain.params import (
     FAMILY_MOOG, build_eq_sos, clamp, get_bool, get_int, get_num, get_str,
-    moog_oversampling_from_order, normalize_deesser_detector,
-    normalize_deesser_mode, normalize_dynamics_detector,
+    moog_oversampling_from_order, normalize_chebyshev_harmonic_mode,
+    normalize_deesser_detector, normalize_deesser_mode,
+    normalize_distortion_mode, normalize_dynamics_detector,
     normalize_dynamics_topology, normalize_filter_family,
-    normalize_filter_kind)
+    normalize_filter_kind, normalize_transformer_quality)
 
 FILTER_TYPES = ("filter", "filter-lowpass", "filter-highpass",
                 "filter-bandpass", "filter-notch", "filter-allpass",
@@ -46,11 +49,8 @@ FILTER_TYPES = ("filter", "filter-lowpass", "filter-highpass",
 
 # Types of the JAX package's default registry that wait for their
 # modules, in the order ROADMAP.md ports them.
-NOT_PORTED = (
-    "chorus", "flanger", "ringmod", "phaser", "tremolo",
-    "bitcrusher", "distortion", "dist-cheb", "transformer", "bass",
-    "spectral-freeze", "granular", "vocoder", "pitch-time",
-    "pitch-spectral")
+NOT_PORTED = ("spectral-freeze", "granular", "vocoder", "pitch-time",
+              "pitch-spectral")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,13 +117,109 @@ def default_registry() -> Registry:
         Limiter, LookaheadLimiter, MultibandCompressor, Topology,
         TransientShaper)
     from algodsp_tpu_torch.effects.delay_effect import Delay
+    from algodsp_tpu_torch.effects.modulation import (Chorus, Flanger, Phaser,
+                                                      RingModulator, Tremolo)
     from algodsp_tpu_torch.effects.reverb import (ConvolutionReverb,
                                                   FDNReverb, Freeverb)
+    from algodsp_tpu_torch.effects.waveshape import (
+        BitCrusher, Distortion, DistortionMode, HarmonicBass,
+        TransformerQuality, TransformerSimulation)
     from algodsp_tpu_torch.filters.biquad import BiquadChain
     from algodsp_tpu_torch.filters.crossover import Crossover
     from algodsp_tpu_torch.filters.moog import MoogFilter, MoogVariant
 
     r = Registry()
+
+    # -- modulation (runtime_modulation.go) -------------------------------
+    r.register("chorus", lambda ctx, p: _stateful(Chorus(
+        ctx.sample_rate,
+        speed_hz=get_num(p, "speedHz", 0.35, 0.05, 5, aliases=("rateHz",)),
+        depth_seconds=get_num(p, "depth", 0.003, 0, 0.01),
+        base_delay_seconds=get_num(p, "baseDelay", 0.02, 0.001, 0.1),
+        mix=get_num(p, "mix", 0.18, 0, 1),
+        stages=get_int(p, "stages", 3, 1, 6))))
+    r.register("flanger", lambda ctx, p: _stateful(Flanger(
+        ctx.sample_rate,
+        rate_hz=get_num(p, "rateHz", 0.25, 0.05, 5),
+        base_delay_seconds=get_num(p, "baseDelay", 0.001, 0.0001, 0.01),
+        depth_seconds=get_num(p, "depth", 0.0015, 0, 0.0099),
+        feedback=get_num(p, "feedback", 0.25, -0.99, 0.99),
+        mix=get_num(p, "mix", 0.5, 0, 1))))
+    r.register("ringmod", lambda ctx, p: _stateful(RingModulator(
+        ctx.sample_rate,
+        carrier_hz=get_num(p, "carrierHz", 440, 1, ctx.sample_rate * 0.49,
+                           aliases=("freqHz",)),
+        mix=get_num(p, "mix", 1, 0, 1))))
+    r.register("phaser", lambda ctx, p: _stateful(Phaser(
+        ctx.sample_rate,
+        min_freq_hz=get_num(p, "minFreqHz", 300, 20, ctx.sample_rate * 0.45),
+        max_freq_hz=get_num(p, "maxFreqHz", 1600,
+                            get_num(p, "minFreqHz", 300) + 1,
+                            ctx.sample_rate * 0.49),
+        stages=get_int(p, "stages", 6, 1, 12),
+        rate_hz=get_num(p, "rateHz", 0.4, 0.05, 5),
+        feedback=get_num(p, "feedback", 0.2, -0.99, 0.99),
+        mix=get_num(p, "mix", 0.5, 0, 1))))
+    r.register("tremolo", lambda ctx, p: _stateful(Tremolo(
+        ctx.sample_rate,
+        rate_hz=get_num(p, "rateHz", 4, 0.05, 20),
+        depth=get_num(p, "depth", 0.6, 0, 1),
+        smoothing_ms=get_num(p, "smoothingMs", 5, 0, 200),
+        mix=get_num(p, "mix", 1, 0, 1))))
+
+    # -- waveshaping (runtime_modulation.go:76-205) -----------------------
+    r.register("bitcrusher", lambda ctx, p: _stateful(BitCrusher(
+        ctx.sample_rate,
+        bit_depth=get_num(p, "bitDepth", 8, 1, 32, aliases=("bits",)),
+        downsample=get_int(p, "downsample", 4, 1, 256),
+        mix=get_num(p, "mix", 1, 0, 1))))
+    r.register("distortion", lambda ctx, p: _stateful(Distortion(
+        mode=normalize_distortion_mode(get_str(p, "mode")),
+        drive=get_num(p, "drive", 1.8, 0.01, 20),
+        mix=get_num(p, "mix", 1.0, 0, 1),
+        output_level=get_num(p, "output", 1.0, 0, 4),
+        clip_level=get_num(p, "clip", 1.0, 0.05, 1),
+        shape=get_num(p, "shape", 0.5, 0, 1),
+        bias=get_num(p, "bias", 0, -1, 1))))
+
+    def _dist_cheb(ctx, p):
+        weights = [get_num(p, f"w{k}", 0.0) for k in range(1, 17)]
+        if not any(weights):
+            weights = None
+        return _stateful(Distortion(
+            mode=DistortionMode.CHEBYSHEV,
+            drive=get_num(p, "drive", 1.0, 0.01, 20),
+            mix=get_num(p, "mix", 1.0, 0, 1),
+            output_level=get_num(p, "output", 1.0, 0, 4),
+            chebyshev_order=get_int(p, "order", 3, 1, 16),
+            chebyshev_mode=normalize_chebyshev_harmonic_mode(
+                get_str(p, "harmonic")),
+            chebyshev_gain=get_num(p, "gain", 1.0, 0, 4),
+            chebyshev_invert=get_bool(p, "invert"),
+            chebyshev_dc_bypass=get_bool(p, "dcBypass"),
+            chebyshev_weights=weights))
+    r.register("dist-cheb", _dist_cheb)
+    r.register("transformer", lambda ctx, p: _stateful(TransformerSimulation(
+        ctx.sample_rate,
+        quality=(TransformerQuality.LIGHTWEIGHT
+                 if normalize_transformer_quality(get_str(p, "quality"))
+                 == "lightweight" else TransformerQuality.HIGH),
+        drive=get_num(p, "drive", 2.0, 0.1, 30),
+        mix=get_num(p, "mix", 1.0, 0, 1),
+        output_level=get_num(p, "output", 1.0, 0, 4),
+        highpass_hz=get_num(p, "highpassHz", 25, 5, ctx.sample_rate * 0.45),
+        damping_hz=get_num(p, "dampingHz", 9000, 200, ctx.sample_rate * 0.49),
+        oversampling=get_int(p, "oversampling", 4, 1, 8))))
+    r.register("bass", lambda ctx, p: _stateful(HarmonicBass(
+        ctx.sample_rate,
+        frequency=get_num(p, "frequency", 80, 10, 500, aliases=("freqHz",)),
+        input_level=get_num(p, "inputGain", 1, 0, 2),
+        high_frequency_gain=get_num(p, "highGain", 1, 0, 2),
+        original_bass_gain=get_num(p, "original", 1, 0, 2),
+        harmonic_bass_gain=get_num(p, "harmonic", 0, 0, 2,
+                                   aliases=("gain",)),
+        decay=get_num(p, "decay", 0, -1, 1),
+        response_ms=get_num(p, "responseMs", 20, 1, 200))))
 
     # -- spatial / delay --------------------------------------------------
     def _widener(ctx, p):

@@ -1,5 +1,5 @@
-// R1-R3: the feedback loops of the delay and the two algorithmic reverbs
-// for Hopper (sm_90a).
+// R1-R3 and M1: the feedback loops of the delay, the two algorithmic
+// reverbs and the flanger for Hopper (sm_90a).
 //
 // Replace the per-sample and blocked `lax.scan`s of the JAX package,
 // which have no Pallas kernel:
@@ -8,7 +8,9 @@
 //   R2  effects/reverb/freeverb.py (Freeverb: _sample_scan :121-151,
 //       _block_step :82-119);
 //   R3  effects/reverb/fdn.py (FDNReverb: _sample_scan :222-253,
-//       _block_step :166-220).
+//       _block_step :166-220);
+//   M1  effects/modulation/modulation.py (Flanger: _sample_scan :233-252,
+//       the blocked scan of process :254-299).
 //
 // Each kernel walks the reference's per-sample recurrence in place on the
 // ring buffers the JAX package keeps as state, one warp a channel, four
@@ -17,12 +19,16 @@
 // or the shortest FDN line (R3), so the 32 samples of a chunk run on the
 // 32 lanes at once: all lanes load, then all store, and only a chunk's
 // one-pole dampings walk its samples in order (lanes 0-7, one comb or
-// line each). The blocked tiers of the reference compute the same
-// per-sample expressions; where they form a read position, a fractional
-// part or an LFO phase differently (a linear index instead of the ring's,
-// the phase from the block's start instead of accumulated), the kernel
-// takes the form of the tier the reference runs for that stretch of the
-// call, so both round alike. sin, floor and fmod are the full-precision
+// line each). M1's lag never drops below max(base delay, 1 sample): a
+// chunk where no sample reads a slot an earlier sample of the chunk
+// writes runs on its lanes, any other (lags under ~0.7 ms) on one lane
+// in order. The bound of all four at the chain's shapes is the dependent
+// walk, not the bytes (a few per sample and ring slot). The blocked tiers of the reference
+// compute the same per-sample expressions; where they form a read
+// position, a fractional part or an LFO phase differently (a linear index
+// instead of the ring's, the phase from the block's start instead of
+// accumulated), the kernel takes the form of the tier the reference runs
+// for that stretch of the call, so both round alike. sin, floor and fmod are the full-precision
 // library functions; the source is built with -fmad=false
 // (_build.EXTRA_FLAGS), so every product and sum rounds by itself, as in
 // the plain versions (ops/feedback.py). float and double.
@@ -435,10 +441,125 @@ __global__ void __launch_bounds__(kWarp * kWarps) fdn_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// M1: the flanger
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct FlangerParams {
+  T fb, mix, dry;  // dry = (T)(1 - mix), rounded from double as the reference
+  int L, B;
+  long long N, nb;  // nb blocks of B samples in the blocked form, then the tail
+};
+
+// Sample k of the call (counter w at the call's start): its read position's
+// fraction and the virtual index of its first tap (slot imod(r, L); the
+// sample itself writes virtual w + k). The blocked form reads the block's
+// linearised ring at (L + t) - d, t the sample's index in its block, which
+// starts at virtual w + k - t; the per-sample form reads at float(w + k) - d
+// with the counter unreduced. The two round differently, so each sample
+// takes the form the reference runs it in.
+template <typename T>
+__device__ __forceinline__ void flanger_tap(const FlangerParams<T>& p,
+                                            long long w, long long k, T dv,
+                                            T& frac, long long& r) {
+  if (k < p.nb * p.B) {
+    const long long t = k % p.B;
+    const T pos = static_cast<T>(p.L + t) - dv;
+    const T fl = floor_of(pos);
+    frac = pos - fl;
+    r = w + k - t - p.L + static_cast<long long>(fl);
+  } else {
+    const T pos = static_cast<T>(w + k) - dv;
+    const T fl = floor_of(pos);
+    frac = pos - fl;
+    r = static_cast<long long>(fl);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kWarps) flanger_kernel(
+    T* __restrict__ buf, const T* __restrict__ x, const T* __restrict__ d,
+    T* __restrict__ y, const int* __restrict__ w_in, int* __restrict__ w_out,
+    int C, FlangerParams<T> p) {
+  const int lane = threadIdx.x % kWarp;
+  const int c = blockIdx.x * kWarps + threadIdx.x / kWarp;
+  if (c >= C) return;
+  const int L = p.L;
+  const long long N = p.N;
+  const long long w = *w_in;  // the reference's counter, never reduced
+  if (c == 0 && lane == 0) *w_out = static_cast<int>(w + N);
+  T* row = buf + static_cast<size_t>(c) * L;
+  const T* xc = x + static_cast<size_t>(c) * N;
+  T* yc = y + static_cast<size_t>(c) * N;
+  for (long long k0 = 0; k0 < N; k0 += kWarp) {
+    const int cnt = static_cast<int>(N - k0 < kWarp ? N - k0 : kWarp);
+    const bool live = lane < cnt;
+    const long long k = k0 + lane;
+    T frac = T(0), xv = T(0);
+    long long r = 0;
+    if (live) {
+      flanger_tap(p, w, k, d[k], frac, r);
+      xv = xc[k];
+    }
+    // lane j of the chunk writes slot (w + k0 + j) mod L: where no lane's
+    // two taps read a slot that an earlier lane writes, every lane reads
+    // what the walk in order would, and the chunk runs on its lanes
+    // (loads, then stores)
+    const long long first = w + k0;
+    const bool apart = !live || (imod(r - first, L) >= lane &&
+                                 imod(r + 1 - first, L) >= lane);
+    if (__all_sync(kFull, apart)) {
+      T delayed = T(0);
+      if (live)
+        delayed = row[imod(r, L)] * (T(1) - frac) + row[imod(r + 1, L)] * frac;
+      __syncwarp();
+      if (live) {
+        row[imod(w + k, L)] = xv + delayed * p.fb;
+        yc[k] = xv * p.dry + delayed * p.mix;
+      }
+    } else if (lane == 0) {
+      // a lag under a chunk (below ~0.7 ms): one lane walks the chunk in
+      // order
+      for (int j = 0; j < cnt; ++j) {
+        const long long kj = k0 + j;
+        T fj;
+        long long rj;
+        flanger_tap(p, w, kj, d[kj], fj, rj);
+        const T xj = xc[kj];
+        const T delayed =
+            row[imod(rj, L)] * (T(1) - fj) + row[imod(rj + 1, L)] * fj;
+        row[imod(w + kj, L)] = xj + delayed * p.fb;
+        yc[kj] = xj * p.dry + delayed * p.mix;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The damping chain alone, for the chain bound: one thread runs n dependent
 // one-pole steps (R2's with its squelch, R3's without) between two clock64()
 // stamps.
 // ---------------------------------------------------------------------------
+
+// M1's dependent chain alone: one warp walks n chunks of 32 samples on a
+// ring of L slots, each lane loading the slot `lag` samples back, then
+// storing its own, as M1's chunks do (the loads of a chunk wait for the
+// stores of the chunks before it), between two clock64() stamps.
+__global__ void ring_chunk_latency_kernel(long long n, int L, int lag,
+                                          float* ring, long long* cycles) {
+  const int lane = threadIdx.x;
+  const long long t0 = clock64();
+  for (long long k0 = 0; k0 < n * kWarp; k0 += kWarp) {
+    const long long k = k0 + lane;
+    const float v = ring[imod(k - lag, L)];
+    __syncwarp();
+    ring[imod(k, L)] = v * 0.5f + 1.0f;
+    __syncwarp();
+  }
+  const long long t1 = clock64();
+  if (lane == 0) cycles[0] = t1 - t0;
+}
 
 template <typename T, bool kSquelch>
 __global__ void damp_latency_kernel(long long n, T x0, T da, T db,
@@ -547,6 +668,25 @@ int fdn_launch(T* lines, const T* fst_in, T* fst_out, const T* lfo_in,
 }
 
 template <typename T>
+int flanger_launch(T* buf, const T* x, const T* d, T* y, const int* w_in,
+                   int* w_out, int C, int L, long long N, int B, long long nb,
+                   const double* prm, void* stream) {
+  // prm: feedback, mix
+  FlangerParams<T> p;
+  p.fb = static_cast<T>(prm[0]);
+  p.mix = static_cast<T>(prm[1]);
+  p.dry = static_cast<T>(1.0 - prm[1]);
+  p.L = L;
+  p.B = B;
+  p.N = N;
+  p.nb = nb;
+  flanger_kernel<T><<<grid_of(C), kWarp * kWarps, 0,
+                      static_cast<cudaStream_t>(stream)>>>(buf, x, d, y, w_in,
+                                                           w_out, C, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int latency(int squelch, long long n, double x0, double damp,
             long long* cycles, void* sink, void* stream) {
   const T da = static_cast<T>(damp), db = static_cast<T>(1.0 - damp);
@@ -621,6 +761,33 @@ int fdn_f64(double* lines, const double* fst_in, double* fst_out,
             void* stream) {
   return fdn_launch<double>(lines, fst_in, fst_out, lfo_in, lfo_out, step_in,
                             step_out, x, inp, y, C, L, N, B, nb, prm, stream);
+}
+
+// buf (C, L) updated in place; x, y (C, N); d (N,) the lag trajectory;
+// w_in, w_out: one int32 each on the device (the unreduced counter); nb
+// blocks of B samples in the blocked form, then the per-sample form; prm:
+// 2 doubles on the host.
+int flanger_f32(float* buf, const float* x, const float* d, float* y,
+                const int* w_in, int* w_out, int C, int L, long long N, int B,
+                long long nb, const double* prm, void* stream) {
+  return flanger_launch<float>(buf, x, d, y, w_in, w_out, C, L, N, B, nb, prm,
+                               stream);
+}
+
+int flanger_f64(double* buf, const double* x, const double* d, double* y,
+                const int* w_in, int* w_out, int C, int L, long long N, int B,
+                long long nb, const double* prm, void* stream) {
+  return flanger_launch<double>(buf, x, d, y, w_in, w_out, C, L, N, B, nb, prm,
+                                stream);
+}
+
+// The cycles of n chunks of M1's dependent walk (ring: L floats on the
+// device, cycles: one int64 on the device).
+int ring_chunk_latency(long long n, int L, int lag, float* ring,
+                       long long* cycles, void* stream) {
+  ring_chunk_latency_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, L, lag, ring, cycles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The cycles of n dependent damping steps on one thread (cycles: one

@@ -1,7 +1,9 @@
-"""The feedback loops of the delay and the algorithmic reverbs: R1 (Delay),
-R2 (Freeverb) and R3 (FDN), counterparts of the per-sample and blocked
-`lax.scan`s of `algodsp_tpu/effects/delay_effect.py`,
-`effects/reverb/freeverb.py` and `effects/reverb/fdn.py` (no Pallas).
+"""The feedback loops of the delay, the algorithmic reverbs and the
+flanger: R1 (Delay), R2 (Freeverb), R3 (FDN) and M1 (Flanger),
+counterparts of the per-sample and blocked `lax.scan`s of
+`algodsp_tpu/effects/delay_effect.py`, `effects/reverb/freeverb.py`,
+`effects/reverb/fdn.py` and `effects/modulation/modulation.py` (no
+Pallas).
 
 Each loop reads its own output back through a delay line, so it runs
 sample by sample. The CUDA kernels of `csrc/feedback.cu` walk that
@@ -51,6 +53,14 @@ _FDN_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_void_p,
                                       ctypes.c_void_p]
+# flanger_f{32,64}(buf, x, d, y, w_in, w_out, C, L, N, B, nb, prm, stream)
+_FLANGER_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_void_p,
+                                         ctypes.c_void_p]
+# ring_chunk_latency(n, L, lag, ring, cycles, stream)
+_RING_LAT_ARGS = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 # damp_latency_f{32,64}(squelch, n, x0, damp, cycles, sink, stream)
 _LAT_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -517,6 +527,107 @@ def fdn_feedback_plain(rv, lines, fstate, lfo, step, x, inp):
 
 
 # ---------------------------------------------------------------------------
+# M1: the flanger
+# ---------------------------------------------------------------------------
+
+def _flanger_blocks(fl, n: int) -> int:
+    """Full `_block` blocks of an n-sample call in the blocked form (none
+    where the block is under 16 samples, as the reference's `process`)."""
+    B = fl._block
+    return n // B if B >= 16 else 0
+
+
+def flanger_feedback(fl, buf, write, x, d):
+    """The flanger `fl` (effects.modulation.Flanger) feedback loop over x
+    (..., N) from the ring buf (..., L) and the int32 write counter
+    `write` (never reduced, as the reference's), along the lag trajectory
+    d (N,). Returns (buf, write, y).
+
+    The kernel (M1) for a CUDA tensor, the plain version for a CPU one.
+    `launches` counts the kernel's launches; N = 0 launches nothing."""
+    if x.device.type == "cpu":
+        return flanger_feedback_plain(fl, buf, write, x, d)
+    _card_call("flanger_feedback", x, buf, write, d)
+    L, N = fl.buf_len, x.shape[-1]
+    lead = x.shape[:-1]
+    if tuple(buf.shape) != tuple(lead) + (L,) or buf.dtype != x.dtype \
+            or d.dtype != x.dtype or tuple(d.shape) != (N,):
+        raise ValueError("flanger_feedback: buf must be (..., L) and d (N,) "
+                         "of x's type")
+    if N == 0:
+        return buf, write.to(torch.int32), x.clone()
+    fn = _build.entry("feedback", f"flanger_{_SUFFIX[x.dtype]}", _FLANGER_ARGS)
+    buf, b2 = _channels(buf, (L,))
+    x2 = x.reshape(-1, N).contiguous()
+    d = d.contiguous()
+    w_in = write.to(torch.int32).contiguous()
+    w_out = torch.empty((), dtype=torch.int32, device=x.device)
+    y = torch.empty_like(x2)
+    prm = (ctypes.c_double * 2)(fl.feedback, fl.mix)
+    with torch.cuda.device(x.device):
+        code = fn(*(_build.ptr(t) for t in (b2, x2, d, y, w_in, w_out)),
+                  b2.shape[0], L, N, fl._block, _flanger_blocks(fl, N),
+                  ctypes.addressof(prm), _build.stream_of(x))
+        flanger_feedback.launches += 1
+    _build.check("feedback", code, "flanger_feedback")
+    return buf, w_out, y.reshape(x.shape)
+
+
+flanger_feedback.launches = 0
+
+
+def flanger_scan_plain(fl, buf, w: int, x, d):
+    """The reference's per-sample scan (`modulation.py:233-252`) from the
+    counter w (an int, not reduced as it advances). Returns (buf, y)."""
+    L = fl.buf_len
+    buf = buf.clone()
+    ys = []
+    for k in range(x.shape[-1]):
+        pos = torch.as_tensor(w + k, dtype=x.dtype, device=x.device) - d[k]
+        fl_ = torch.floor(pos)
+        i0, frac = fl_.long(), pos - fl_
+        delayed = (buf[..., torch.remainder(i0, L)] * (1 - frac)
+                   + buf[..., torch.remainder(i0 + 1, L)] * frac)
+        xv = x[..., k]
+        buf[..., (w + k) % L] = xv + delayed * fl.feedback
+        ys.append(xv * (1.0 - fl.mix) + delayed * fl.mix)
+    return buf, (torch.stack(ys, dim=-1) if ys else x.clone())
+
+
+def flanger_feedback_plain(fl, buf, write, x, d):
+    """Plain PyTorch version of M1: the reference's `process` feedback
+    loop (`modulation.py:254-299`): whole `_block` blocks on the
+    linearised ring, reading at (L + t) - d, then the per-sample scan for
+    the tail. The blocked form's in-window shifts select the same two
+    samples with the same weights as the direct gather here."""
+    L, N = fl.buf_len, x.shape[-1]
+    B = fl._block
+    nb = _flanger_blocks(fl, N)
+    w = int(write)
+    ys = []
+    if nb:
+        lin = ring.ring_to_linear(buf, w)
+        t = torch.arange(B, device=x.device)
+        for b in range(nb):
+            sl = slice(b * B, (b + 1) * B)
+            pos = (L + t).to(x.dtype) - d[sl]
+            fl_ = torch.floor(pos)
+            i0 = fl_.long()
+            frac = pos - fl_
+            delayed = lin[..., i0] * (1 - frac) + lin[..., i0 + 1] * frac
+            xb = x[..., sl]
+            lin = torch.cat([lin[..., B:], xb + delayed * fl.feedback], dim=-1)
+            ys.append(xb * (1.0 - fl.mix) + delayed * fl.mix)
+        buf = ring.linear_to_ring(lin, w + nb * B)
+    if N > nb * B:
+        buf, yt = flanger_scan_plain(fl, buf, w + nb * B, x[..., nb * B:],
+                                     d[nb * B:])
+        ys.append(yt)
+    y = torch.cat(ys, dim=-1) if ys else x.clone()
+    return buf, torch.as_tensor(w + N, dtype=torch.int32, device=x.device), y
+
+
+# ---------------------------------------------------------------------------
 # the damping chain's cycles, for the kernels' chain bound
 # ---------------------------------------------------------------------------
 
@@ -533,4 +644,20 @@ def damp_step_cycles(damp: float, squelch: bool, dtype=torch.float32,
                   _build.ptr(sink), _build.stream_of(cycles))
         _build.check("feedback", code, "damp_latency")
         torch.cuda.synchronize(cycles.device)
+    return int(cycles.item()) / n
+
+
+def ring_chunk_cycles(L: int, lag: int, n: int = 1 << 14, device="cuda") -> float:
+    """SM cycles of one 32-sample chunk of M1's dependent walk on one warp
+    (each lane loads the ring slot `lag` samples back, then stores its
+    own), clock64 stamps around n chunks: with the SM clock, the chain
+    bound of an N-sample walk is ceil(N / 32) times this."""
+    fn = _build.entry("feedback", "ring_chunk_latency", _RING_LAT_ARGS)
+    ring = torch.zeros(L, dtype=torch.float32, device=device)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    for _ in range(2):      # the first run warms the instruction cache
+        code = fn(n, L, lag, _build.ptr(ring), _build.ptr(cycles),
+                  _build.stream_of(ring))
+        _build.check("feedback", code, "ring_chunk_latency")
+        torch.cuda.synchronize(ring.device)
     return int(cycles.item()) / n

@@ -33,17 +33,27 @@ oneDNN on the CPU), they run in full float32, as the reference pins
 band axis (the filter bank's per-section path), the band axis as the
 products' batch.
 
+`affine2_scan` and `affine_scan_nd` solve time-varying affine
+recurrences s_n = A_n s_{n-1} + w_n whose coefficients are known up
+front (the modulation effects): on the card the CUDA kernels M3 and M2
+(`csrc/affine.cu`, one walk in order a channel), on the CPU their plain
+versions, the reference's log-depth composition written as
+Hillis-Steele doubling.
+
 Streaming state is (x_{n-1}, x_{n-2}, y_{n-1}, y_{n-2}) per section.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from algodsp_tpu_torch import _build
 
 DEFAULT_BLOCK = 128
 
@@ -499,3 +509,200 @@ def run_sections(x, sos, state, *, mode: str = "blocked",
         x = y
     y_out = x[..., :n] if pad else x
     return torch.stack(new_states, dim=-2), y_out
+
+
+# ---------------------------------------------------------------------------
+# Time-varying affine scans: M3 (affine2_scan) and M2 (affine_scan_nd)
+# ---------------------------------------------------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# affine_scan_nd_f{32,64}(A, w, s0, after, fin, C, N, d, stream)
+_ND_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+                                    ctypes.c_int, ctypes.c_void_p]
+# affine2_scan_f{32,64}(A, w, s0, entry, fin, C, N, stream)
+_TWO_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_void_p]
+MAX_ND = 32          # M2 holds row i of A_n on lane i of a warp
+
+
+def _mat2(a_r, a_l):
+    """a_r @ a_l of 2 x 2 matrices packed [m00, m01, m10, m11]."""
+    return torch.stack([
+        a_r[..., 0] * a_l[..., 0] + a_r[..., 1] * a_l[..., 2],
+        a_r[..., 0] * a_l[..., 1] + a_r[..., 1] * a_l[..., 3],
+        a_r[..., 2] * a_l[..., 0] + a_r[..., 3] * a_l[..., 2],
+        a_r[..., 2] * a_l[..., 1] + a_r[..., 3] * a_l[..., 3]], dim=-1)
+
+
+def _vec2(a, b):
+    """a @ b of a packed 2 x 2 matrix and a 2-vector."""
+    return torch.stack([a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1],
+                        a[..., 2] * b[..., 0] + a[..., 3] * b[..., 1]], dim=-1)
+
+
+def affine2_scan_plain(A, w, s0):
+    """Plain PyTorch version of M3: the reference's log-depth composition
+    of (matrix, vector) pairs (`linrec.py:428-466`), as Hillis-Steele
+    doubling: after the step with shift d, pair n holds the composition
+    of steps n-2d+1..n. Returns (entry, final)."""
+    lead = torch.broadcast_shapes(A.shape[:-2], w.shape[:-2], s0.shape[:-1])
+    n = A.shape[-2]
+    A = torch.broadcast_to(A, lead + A.shape[-2:])
+    w = torch.broadcast_to(w, lead + w.shape[-2:])
+    s0b = torch.broadcast_to(s0, lead + (2,))
+    if n == 0:
+        return w.clone(), s0b.clone()
+    # fold the initial state into the first step's offset
+    w = torch.cat([(_vec2(A[..., 0, :], s0b) + w[..., 0, :])[..., None, :],
+                   w[..., 1:, :]], dim=-2)
+    a, b = A, w
+    d = 1
+    with full_float32():
+        while d < n:
+            a_r, b_r = a[..., d:, :], b[..., d:, :]
+            a = torch.cat([a[..., :d, :], _mat2(a_r, a[..., :-d, :])], dim=-2)
+            b = torch.cat([b[..., :d, :], _vec2(a_r, b[..., :-d, :]) + b_r],
+                          dim=-2)
+            d *= 2
+    entry = torch.cat([s0b[..., None, :], b[..., :-1, :]], dim=-2)
+    return entry, b[..., -1, :]
+
+
+def affine_scan_nd_plain(A, w, s0):
+    """Plain PyTorch version of M2: the reference's log-depth composition
+    (`linrec.py:469-506`) as Hillis-Steele doubling, its d x d products
+    under `full_float32()`. Returns (after, final)."""
+    n, d = A.shape[0], A.shape[-1]
+    lead = torch.broadcast_shapes(w.shape[:-2], s0.shape[:-1])
+    w = torch.broadcast_to(w, lead + w.shape[-2:])
+    if n == 0:
+        return w.clone(), torch.broadcast_to(s0, lead + (d,)).clone()
+    with full_float32():
+        w0 = torch.einsum("ij,...j->...i", A[0], torch.broadcast_to(s0, lead + (d,)))
+        b = torch.cat([(w[..., 0, :] + w0)[..., None, :], w[..., 1:, :]], dim=-2)
+        a = A
+        shift = 1
+        while shift < n:
+            a_r = a[shift:]
+            b = torch.cat([b[..., :shift, :],
+                           torch.einsum("nij,...nj->...ni", a_r, b[..., :-shift, :])
+                           + b[..., shift:, :]], dim=-2)
+            a = torch.cat([a[:shift], a_r @ a[:-shift]], dim=0)
+            shift *= 2
+    return b, b[..., -1, :]
+
+
+def _card_scan(what: str, *tensors):
+    x = tensors[0]
+    if x.dtype not in _SUFFIX:
+        raise ValueError(f"{what}: takes float32 or float64, got {x.dtype}")
+    for t in tensors:
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{what}: every tensor must be {x.dtype} on "
+                             f"{x.device}")
+    _build.refuse_grad(what, "its adjoint is not ported", *tensors)
+
+
+def affine2_scan(A, w, s0):
+    """Time-varying 2-state affine recurrence s_n = A_n s_{n-1} + w_n
+    along axis -2 (`algodsp_tpu/ops/linrec.py::affine2_scan`).
+
+    A: (..., N, 4) per-step 2 x 2 matrices packed [m00, m01, m10, m11];
+    w: (..., N, 2); s0: (..., 2), the leading dims broadcasting. Returns
+    (entry, final): entry[..., n, :] is the state BEFORE step n
+    (entry[..., 0, :] == s0), final the state after step N-1.
+
+    The kernel M3 for CUDA tensors (a gradient wanted there raises), the
+    plain version for CPU tensors. `launches` counts the kernel's
+    launches; N = 0 launches nothing."""
+    if A.device.type == "cpu":
+        return affine2_scan_plain(A, w, s0)
+    if A.device.type != "cuda":
+        raise ValueError(f"affine2_scan: unsupported device {A.device}")
+    _card_scan("affine2_scan", A, w, s0)
+    lead = torch.broadcast_shapes(A.shape[:-2], w.shape[:-2], s0.shape[:-1])
+    n = A.shape[-2]
+    if A.shape[-1] != 4 or w.shape[-1] != 2 or w.shape[-2] != n:
+        raise ValueError("affine2_scan: A must be (..., N, 4) and w (..., N, 2)")
+    if n == 0 or lead.numel() == 0:      # nothing to walk
+        return (torch.broadcast_to(w, lead + (n, 2)).clone(),
+                torch.broadcast_to(s0, lead + (2,)).clone())
+    fn = _build.entry("affine", f"affine2_scan_{_SUFFIX[A.dtype]}", _TWO_ARGS)
+    flat = lambda t, tail: torch.broadcast_to(t, lead + tail).reshape(
+        (-1,) + tail).contiguous()
+    A2, w2, s2 = flat(A, (n, 4)), flat(w, (n, 2)), flat(s0, (2,))
+    entry = torch.empty_like(w2)
+    fin = torch.empty_like(s2)
+    with torch.cuda.device(A.device):
+        code = fn(*(_build.ptr(t) for t in (A2, w2, s2, entry, fin)),
+                  A2.shape[0], n, _build.stream_of(A))
+        affine2_scan.launches += 1
+    _build.check("affine", code, "affine2_scan")
+    return entry.reshape(lead + (n, 2)), fin.reshape(lead + (2,))
+
+
+affine2_scan.launches = 0
+
+
+def affine_scan_nd(A, w, s0):
+    """d-dimensional time-varying affine recurrence s_n = A_n s_{n-1} + w_n
+    (`algodsp_tpu/ops/linrec.py::affine_scan_nd`).
+
+    A: (N, d, d) per-step matrices shared by the batch (LFO-driven
+    coefficients); w: (..., N, d) per-step offsets; s0: (..., d). Returns
+    (after, final): after[..., n, :] is the state AFTER step n.
+
+    The kernel M2 for CUDA tensors (d <= 32; a gradient wanted there
+    raises), the plain version for CPU tensors. `launches` counts the
+    kernel's launches; N = 0 launches nothing."""
+    if A.device.type == "cpu":
+        return affine_scan_nd_plain(A, w, s0)
+    if A.device.type != "cuda":
+        raise ValueError(f"affine_scan_nd: unsupported device {A.device}")
+    _card_scan("affine_scan_nd", A, w, s0)
+    n, d = A.shape[0], A.shape[-1]
+    if (A.ndim != 3 or A.shape[1] != d or w.shape[-2:] != (n, d)
+            or not 1 <= d <= MAX_ND):
+        raise ValueError(f"affine_scan_nd: A must be (N, d, d) with d <= "
+                         f"{MAX_ND} and w (..., N, d)")
+    lead = torch.broadcast_shapes(w.shape[:-2], s0.shape[:-1])
+    if n == 0 or lead.numel() == 0:      # nothing to walk
+        return (torch.broadcast_to(w, lead + (n, d)).clone(),
+                torch.broadcast_to(s0, lead + (d,)).clone())
+    fn = _build.entry("affine", f"affine_scan_nd_{_SUFFIX[A.dtype]}", _ND_ARGS)
+    w2 = torch.broadcast_to(w, lead + (n, d)).reshape(-1, n, d).contiguous()
+    s2 = torch.broadcast_to(s0, lead + (d,)).reshape(-1, d).contiguous()
+    A2 = A.contiguous()
+    after = torch.empty_like(w2)
+    fin = torch.empty_like(s2)
+    with torch.cuda.device(A.device):
+        code = fn(*(_build.ptr(t) for t in (A2, w2, s2, after, fin)),
+                  w2.shape[0], n, d, _build.stream_of(A))
+        affine_scan_nd.launches += 1
+    _build.check("affine", code, "affine_scan_nd")
+    return after.reshape(lead + (n, d)), fin.reshape(lead + (d,))
+
+
+affine_scan_nd.launches = 0
+
+
+# affine_latency_f{32,64}(kind, n, d, cycles, sink, stream)
+_LAT_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+
+
+def scan_step_cycles(d: int, dtype=torch.float32, n: int = 1 << 16,
+                     device="cuda") -> float:
+    """SM cycles of one dependent step of M2 (d-dimensional; one warp,
+    the matrix row in registers) or, for d = 2, of M3 (one thread),
+    clock64 stamps around n steps: with the SM clock, the chain bound of
+    an N-step walk is N times this."""
+    fn = _build.entry("affine", f"affine_latency_{_SUFFIX[dtype]}", _LAT_ARGS)
+    cycles = torch.zeros(1, dtype=torch.int64, device=device)
+    sink = torch.zeros(32, dtype=dtype, device=device)
+    for _ in range(2):      # the first run warms the instruction cache
+        code = fn(3 if d == 2 else 2, n, d, _build.ptr(cycles), _build.ptr(sink),
+                  _build.stream_of(cycles))
+        _build.check("affine", code, "affine_latency")
+        torch.cuda.synchronize(cycles.device)
+    return int(cycles.item()) / n

@@ -145,7 +145,23 @@ Phases, each printing its own lines:
                overlap convolvers streamed, correlate (the peak lags) and
                deconvolve by all three methods at 8 x 48128, and direct
                under cuDNN's TF32 default; R1-R3's times and bounds;
- 12. kernels — the line of every kernel with its launches by path.
+ 12. modulation — the modulation and waveshaping slice: M1 (the
+               flanger's feedback loop) bit-equal to its plain version on
+               the card (the chain's flanger, C = 65 with a ragged tail, a
+               0.1 ms base delay in the per-sample form), M2 and M3 (the
+               Phaser's and the AutoWah's affine scans) against theirs at
+               the chain's and the one-shot shapes and a ragged tail, float32
+               and float64; MOD_GRAPH (distortion -> chorus -> phaser ->
+               flanger -> tremolo) and WAVE_GRAPH (bit crusher -> Chebyshev
+               distortion -> transformer -> bass exciter -> ring modulator)
+               over 64 ch x 94 blocks of 512 in float32 and float64, each
+               against the CPU path in float64 with its launches per block
+               (M1, M2, K3, K4), no plain version called, ms per block,
+               real-time factor and busy share; the AutoWah, the
+               FrequencyShifter at +-100 Hz and the Chorus, Phaser and
+               Flanger (one call, then 94 blocks) at 8 x 48128; M1-M3's
+               times beside their byte and chain bounds;
+ 13. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -1500,6 +1516,429 @@ def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
           f"; phase {time.perf_counter() - t_ph:.2f} s")
     assert all(kernels[n]["by_path"].get("space_chain_float32") == CHAIN_BLOCKS
                for n in names)
+
+
+# Phase 12: the modulation and waveshaping slice through the effect chain,
+# at the chain cell's width. MOD_GRAPH is a guitar or synth bus's
+# modulation strip (M1, M2 and the tremolo's smoothing on K3 a block);
+# WAVE_GRAPH a lo-fi or colour strip (K3 for the Chebyshev DC bypass and
+# the transformer's three 4x chains, K4 under the bass exciter's limiter;
+# the slow 25, 40 and 80 Hz poles on the whole-cascade engine). The bit
+# crusher leads, so it quantises the input itself. Both at the registry's
+# defaults.
+MOD_GRAPH = {
+    "nodes": [
+        {"id": "drive", "type": "distortion", "params": {"mode": "tanh",
+                                                         "drive": 1.8}},
+        {"id": "chorus", "type": "chorus", "params": {}},
+        {"id": "phaser", "type": "phaser", "params": {}},
+        {"id": "flanger", "type": "flanger", "params": {}},
+        {"id": "tremolo", "type": "tremolo", "params": {}}],
+    "connections": [{"from": "_input", "to": "drive"},
+                    {"from": "drive", "to": "chorus"},
+                    {"from": "chorus", "to": "phaser"},
+                    {"from": "phaser", "to": "flanger"},
+                    {"from": "flanger", "to": "tremolo"},
+                    {"from": "tremolo", "to": "_output"}]}
+WAVE_GRAPH = {
+    "nodes": [
+        {"id": "crush", "type": "bitcrusher", "params": {}},
+        {"id": "cheb", "type": "dist-cheb", "params": {"order": 3,
+                                                       "dcBypass": 1}},
+        {"id": "iron", "type": "transformer", "params": {"quality": "high",
+                                                         "oversampling": 4}},
+        {"id": "bass", "type": "bass", "params": {}},
+        {"id": "ring", "type": "ringmod", "params": {}}],
+    "connections": [{"from": "_input", "to": "crush"},
+                    {"from": "crush", "to": "cheb"},
+                    {"from": "cheb", "to": "iron"},
+                    {"from": "iron", "to": "bass"},
+                    {"from": "bass", "to": "ring"},
+                    {"from": "ring", "to": "_output"}]}
+# Operations a step, counting floor as one (so the operation bound is a
+# floor): M1 the read position and fraction (3), the two taps (4), the
+# write (2) and the mix (3); M2 a d x d product and the offset (2 d^2);
+# M3 two rows of two products and the offset (8).
+M1_SAMPLE_OPS = 12
+M3_STEP_OPS = 8
+
+
+def modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> None:
+    """Phase 12: the modulation and waveshaping slice on the card. M1-M3
+    against their plain versions on the card (M1 bit for bit: the chain's
+    flanger, C = 65 with a ragged tail, a 0.1 ms base delay in the
+    per-sample form; M2 and M3 at the chain's and the one-shot shapes and
+    a ragged tail, float32 and float64); MOD_GRAPH and WAVE_GRAPH streamed
+    over 64 ch x 94 blocks of 512 in float32 and float64 against the CPU
+    path in float64, with launches per block, no plain version called, ms
+    per block, real-time factor and the profiler's busy share; the
+    AutoWah, the FrequencyShifter at +-100 Hz and the Chorus, Phaser and
+    Flanger (one call, then 94 blocks) at 8 x 48128; M1-M3's times beside
+    their bounds. M1-M3 join the `kernels` line."""
+    from algodsp_tpu_torch.chain import Chain
+    from algodsp_tpu_torch.effects import modulation as modfx
+    from algodsp_tpu_torch.ops import dynfb, feedback, linrec
+
+    t_ph = time.perf_counter()
+    names = ("flanger_feedback", "affine_scan_nd", "affine2_scan")
+    earlier = list(next(iter(kernels.values()))["by_path"])
+    specs = {
+        "flanger_feedback": (
+            "algodsp_tpu_torch/csrc/feedback.cu", feedback.flanger_feedback,
+            "algodsp_tpu/effects/modulation/modulation.py:233-299 (Flanger."
+            "_sample_scan and the blocked scan of process; lax.scans, no "
+            "Pallas)"),
+        "affine_scan_nd": (
+            "algodsp_tpu_torch/csrc/affine.cu", linrec.affine_scan_nd,
+            "algodsp_tpu/ops/linrec.py:469 (affine_scan_nd, an "
+            "associative_scan; no Pallas)"),
+        "affine2_scan": (
+            "algodsp_tpu_torch/csrc/affine.cu", linrec.affine2_scan,
+            "algodsp_tpu/ops/linrec.py:428 (affine2_scan, an "
+            "associative_scan; no Pallas)")}
+    for name, (source, wrapper, repl) in specs.items():
+        kernels[name] = {"route": "cuda", "source": source, "replaces": repl,
+                         "wrapper": wrapper, "errs": [],
+                         "by_path": {p: 0 for p in earlier}}
+    plain = [(feedback, "flanger_feedback_plain"), (feedback, "flanger_scan_plain"),
+             (linrec, "affine2_scan_plain"), (linrec, "affine_scan_nd_plain"),
+             (bqmod, "biquad_cascade_plain"), (envscan, "envelope_scan_plain")]
+    rng = np.random.default_rng(14)
+    dtypes = (torch.float32, torch.float64)
+    dname = lambda dt: str(dt)[6:]
+    block_ms = CHAIN_BLOCK / SR * 1e3
+
+    def driven(path, fn, allowed):
+        """fn() with every launch counter at 0 before and read after, the
+        plain versions' calls counted (none may be called); the launches
+        go to `by_path`."""
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        with plain_calls(plain) as plain_n:
+            out = fn()
+            torch.cuda.synchronize()
+        launches = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n, k in kernels.items():
+            k["by_path"][path] = launches[n]
+        used = {n: v for n, v in launches.items() if v}
+        assert not any(plain_n.values()), (path, plain_n)
+        assert set(used) <= set(allowed), (path, used)
+        return out, used
+
+    def captured(mod, name, fn):
+        """fn() with the wrapper `mod.name` recording the arguments of
+        each call (tensors cloned before the call: M1 updates its ring in
+        place); returns (fn's result, the calls' arguments)."""
+        seen, orig = [], getattr(mod, name)
+
+        def recording(*args):
+            seen.append([a.clone() if torch.is_tensor(a) else a for a in args])
+            return orig(*args)
+        # the wrapper counts its launches on the name it is bound to in its
+        # module, which is this recorder while it stands in
+        recording.launches = 0
+        setattr(mod, name, recording)
+        try:
+            return fn(), seen
+        finally:
+            setattr(mod, name, orig)
+
+    def noise(*shape, scale=1.0):
+        return scale * rng.standard_normal(shape)
+
+    def on(a, dt):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    # -- M1 against its plain version on the card, bit for bit ------------------
+    fl_chain = modfx.Flanger(SR, rate_hz=0.25, base_delay_seconds=0.001,
+                             depth_seconds=0.0015, feedback=0.25, mix=0.5)
+    fl_short = modfx.Flanger(SR, rate_hz=0.25, base_delay_seconds=0.0001,
+                             depth_seconds=0.0015, feedback=0.9, mix=0.5)
+    for dt in dtypes:
+        for label, fl, c, n, phase in (
+                (f"chain block {CHAIN_CH}x{CHAIN_BLOCK} (46-sample blocks, a "
+                 "per-sample tail)", fl_chain, CHAIN_CH, CHAIN_BLOCK, 1.3),
+                ("C=65 N=1000 (21 blocks and a ragged tail)", fl_chain, 65, 1000,
+                 5.0),
+                ("C=65 N=700, base 0.1 ms (per-sample form, lags under a chunk)",
+                 fl_short, 65, 700, 4.2)):
+            x = on(noise(c, n), dt)
+            buf = on(noise(c, fl.buf_len, scale=0.3), dt)
+            w = torch.tensor(70000, dtype=torch.int32, device=dev)
+            d = fl.lags(torch.tensor(phase, dtype=dt, device=dev), n, x)
+            out_k = feedback.flanger_feedback(fl, buf.clone(), w, x, d)
+            out_p = feedback.flanger_feedback_plain(fl, buf.clone(), w, x, d)
+            out_k2 = feedback.flanger_feedback(fl, buf.clone(), w, x, d)
+            torch.cuda.synchronize()
+            bit = all(bits_equal(torch, a, b) for a, b in ((out_k[0], out_p[0]),
+                                                           (out_k[2], out_p[2])))
+            ints = int(out_k[1]) == int(out_p[1]) == 70000 + n
+            again = all(bits_equal(torch, a, b) for a, b in ((out_k[0], out_k2[0]),
+                                                             (out_k[2], out_k2[2])))
+            err = float(torch.max(torch.abs(out_k[2] - out_p[2])))
+            kernels["flanger_feedback"]["errs"].append(err)
+            ok = bit and ints and again
+            print(f"modulation check flanger_feedback {dname(dt)} {label}: y and "
+                  f"ring bit-equal to the plain version on the card {bit}, "
+                  f"counter {int(out_k[1])} equal {ints}, second call bit-equal "
+                  f"{again} {'ok' if ok else 'FAILED'}")
+            assert ok, label
+
+    # -- M2 and M3 against their plain versions on the card -----------------------
+    def scan_check(name, label, args):
+        """The kernel and the plain version on the same inputs on the card,
+        and the plain version in float64 of the same inputs: float64 >=
+        200 dB; float32 >= 100 dB or no more than 6 dB under the plain
+        version's own float32 reading against float64 (the kernel walks in
+        order, the plain version composes by doubling)."""
+        kern = getattr(linrec, name)
+        plain_fn = getattr(linrec, f"{name}_plain")
+        out_k = kern(*args)
+        out_p = plain_fn(*args)
+        ref = plain_fn(*(a.double() for a in args))
+        torch.cuda.synchronize()
+        cat = lambda o: np.concatenate([host(t).ravel() for t in o])
+        got, want, r64 = cat(out_k), cat(out_p), cat(ref)
+        s_kp = snr_db(want, got)
+        dt = args[0].dtype
+        if dt == torch.float64:
+            bar, cls = 200.0, None
+        else:
+            cls = snr_db(r64, want)
+            bar = min(100.0, cls - 6.0)
+        k64 = snr_db(r64, got)
+        err = float(np.max(np.abs(got - want)))
+        kernels[name]["errs"].append(err)
+        ok = s_kp >= bar
+        extra = ("" if cls is None else
+                 f"; against float64: the kernel {k64:.1f} dB, the plain "
+                 f"version {cls:.1f} dB")
+        print(f"modulation check {name} {dname(dt)} {label}: vs plain on the "
+              f"card SNR {s_kp:.1f} dB (bar >= {bar:.1f}){extra}, max|err| "
+              f"{err:.3e} {'ok' if ok else 'FAILED'}")
+        assert ok, (name, label)
+
+    def phaser_args(c, n, stages, dt):
+        ph = modfx.Phaser(SR, stages=stages, rate_hz=0.4, feedback=0.2, mix=0.5)
+        st = ph.init_state((c,), dt, dev)
+        st = {"x1": on(noise(c, stages, scale=0.2), dt),
+              "y1": on(noise(c, stages, scale=0.2), dt),
+              "fb": on(noise(c, scale=0.2), dt), "phase": st["phase"] + 2.0}
+        _, seen = captured(linrec, "affine_scan_nd",
+                           lambda: ph.process(st, on(noise(c, n), dt)))
+        return seen[0]
+
+    def autowah_args(c, n, dt):
+        aw = modfx.AutoWah(SR)
+        levels = np.repeat(rng.uniform(0.02, 1.0, (c, -(-n // 1000))), 1000,
+                           axis=1)[:, :n]
+        _, seen = captured(linrec, "affine2_scan", lambda: aw.process(
+            aw.init_state((c,), dt, dev), on(noise(c, n) * levels, dt)))
+        return seen[0]
+
+    for dt in dtypes:
+        scan_check("affine_scan_nd", f"the chain's phaser {CHAIN_CH}x{CHAIN_BLOCK} "
+                   "(6 stages: d = 7, N - 1 = 511 steps)",
+                   phaser_args(CHAIN_CH, CHAIN_BLOCK, 6, dt))
+        scan_check("affine_scan_nd", "C=65 N=333, 12 stages (d = 13)",
+                   phaser_args(65, 333, 12, dt))
+        scan_check("affine2_scan", f"the AutoWah {CHANNELS}x{N_FLAGSHIP}",
+                   autowah_args(CHANNELS, N_FLAGSHIP, dt))
+        scan_check("affine2_scan", f"{CHAIN_CH}x{CHAIN_BLOCK}",
+                   autowah_args(CHAIN_CH, CHAIN_BLOCK, dt))
+        scan_check("affine2_scan", "C=65 N=333", autowah_args(65, 333, dt))
+
+    # -- the two graphs: 64 ch x 94 blocks of 512 -------------------------------
+    n_chain = CHAIN_BLOCKS * CHAIN_BLOCK
+    levels = np.repeat(rng.uniform(0.05, 1.0, (CHAIN_CH, -(-n_chain // 4800))),
+                       4800, axis=1)[:, :n_chain]
+    xs_np = (0.5 * rng.standard_normal((CHAIN_CH, n_chain)) * levels).astype(np.float32)
+    launches_expected = {
+        ("mod", torch.float32): {"flanger_feedback": 1, "affine_scan_nd": 1,
+                                 "biquad_cascade": 1},
+        ("mod", torch.float64): {"flanger_feedback": 1, "affine_scan_nd": 1},
+        ("wave", torch.float32): {"biquad_cascade": 4, "envelope": 1},
+        ("wave", torch.float64): {"envelope": 1}}
+    for gname, graph in (("mod", MOD_GRAPH), ("wave", WAVE_GRAPH)):
+        raw = json.dumps(graph)
+        ch_cpu = Chain(SR)
+        assert ch_cpu.load_graph(raw) == []
+        t0 = time.perf_counter()
+        _, y_cpu = ch_cpu.process_blocks(
+            ch_cpu.init_state((CHAIN_CH,), torch.float64, "cpu"),
+            torch.as_tensor(xs_np, dtype=torch.float64))
+        cpu_s = time.perf_counter() - t0
+        y_cpu = y_cpu.numpy()
+        _, y_cpu32 = ch_cpu.process_blocks(
+            ch_cpu.init_state((CHAIN_CH,), torch.float32, "cpu"),
+            torch.as_tensor(xs_np))
+        cpu32 = snr_db(y_cpu, y_cpu32.numpy())
+        bars = {torch.float32: min(100.0, cpu32 - 6.0), torch.float64: 200.0}
+        for dt in dtypes:
+            path = f"{gname}_chain_{dname(dt)}"
+            ch = Chain(SR)
+            assert ch.load_graph(raw) == []
+            xs = torch.as_tensor(xs_np, dtype=dt, device=dev)
+            st = ch.init_state((CHAIN_CH,), dt, dev)
+            expect = launches_expected[(gname, dt)]
+            (_, ys), used = driven(path, lambda: ch.process_blocks(st, xs), expect)
+            assert used == {n: v * CHAIN_BLOCKS for n, v in expect.items()}, used
+            yh = host(ys)
+            assert yh.shape == (CHAIN_CH, n_chain) and np.all(np.isfinite(yh))
+            s = snr_db(y_cpu, yh)
+            print(f"modulation {path} {CHAIN_CH}x{n_chain} ({CHAIN_BLOCKS} blocks): "
+                  f"launches per block "
+                  f"{json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}, "
+                  f"plain versions called 0; vs the CPU path in float64 (its "
+                  f"{cpu_s:.2f} s; its float32 run {cpu32:.1f} dB) SNR {s:.1f} dB "
+                  f"(bar >= {bars[dt]:.1f}) {'ok' if s >= bars[dt] else 'FAILED'}")
+            assert s >= bars[dt], path
+            st_t = ch.init_state((CHAIN_CH,), dt, dev)
+            ms = time_ms(torch, lambda: ch.process_blocks(st_t, xs), reps=2,
+                         warmup=1) / CHAIN_BLOCKS
+            act = device_activity(torch, lambda: ch.process(st_t, xs[:, :CHAIN_BLOCK]),
+                                  10, ("flanger_", "affine", "biquad_", "envelope"))
+            parts = ", ".join(f"{k} {t:.4f}" for k, t in act["by_name"].items())
+            busy = ("device time not measured" if act["ms"] is None else
+                    f"device {act['ms']:.4f} ms a block in {act['count']:.0f} "
+                    f"kernels and copies ({parts}), busy "
+                    f"{100 * act['ms'] / ms:.1f}% of the wall (profiler; "
+                    f"{act['dropped']} records in one session only)")
+            print(f"time {path} per block ({CHAIN_CH}x{CHAIN_BLOCK}, mean over 2 x "
+                  f"{CHAIN_BLOCKS} blocks of process_blocks): {ms:.4f} ms, "
+                  f"real-time factor {block_ms / ms:.2f}; {busy} ({gpu})")
+
+    # -- one-shot at 8 x 48128 ----------------------------------------------------
+    x_np = 0.5 * rng.standard_normal((CHANNELS, N_FLAGSHIP)) * np.repeat(
+        rng.uniform(0.02, 1.0, (CHANNELS, 47)), 1024, axis=1)[:, :N_FLAGSHIP]
+
+    def trio():
+        return (modfx.Chorus(SR, speed_hz=0.35, depth_seconds=0.003,
+                             base_delay_seconds=0.02, mix=0.18),
+                modfx.Phaser(SR, rate_hz=0.4, stages=6, feedback=0.2, mix=0.5),
+                modfx.Flanger(SR, rate_hz=0.25, base_delay_seconds=0.001,
+                              depth_seconds=0.0015, feedback=0.25, mix=0.5))
+
+    def trio_run(x, blocks):
+        fxs = trio()
+        sts = [fx.init_state(x.shape[:-1], x.dtype, x.device) for fx in fxs]
+        blk = x.shape[-1] // blocks
+        outs = []
+        for b in range(blocks):
+            v = x[..., b * blk:(b + 1) * blk]
+            for i, fx in enumerate(fxs):
+                sts[i], v = fx.process(sts[i], v)
+            outs.append(v)
+        return torch.cat(outs, dim=-1)
+
+    def shifter(shift):
+        def run(x):
+            fs = modfx.FrequencyShifter(SR, shift_hz=shift)
+            _, (up, down) = fs.process(fs.init_state((), x.dtype, x.device), x)
+            return torch.stack([up, down])
+        return run
+
+    def autowah(x):
+        aw = modfx.AutoWah(SR)
+        return aw.process(aw.init_state(x.shape[:-1], x.dtype, x.device), x)[1]
+
+    both = lambda launches: {dt: launches for dt in dtypes}
+    items = [("autowah", "AutoWah", autowah,
+              both({"envelope": 1, "affine2_scan": 1})),
+             ("shift_up", "FrequencyShifter +100 Hz", shifter(100.0),
+              {torch.float32: {"biquad_cascade": 2}, torch.float64: {}}),
+             ("shift_down", "FrequencyShifter -100 Hz", shifter(-100.0),
+              {torch.float32: {"biquad_cascade": 2}, torch.float64: {}}),
+             ("trio", "Chorus, Phaser, Flanger in one call", lambda x: trio_run(x, 1),
+              both({"affine_scan_nd": 1, "flanger_feedback": 1})),
+             ("trio_blocks", f"Chorus, Phaser, Flanger in {CHAIN_BLOCKS} blocks",
+              lambda x: trio_run(x, CHAIN_BLOCKS),
+              both({"affine_scan_nd": CHAIN_BLOCKS, "flanger_feedback": CHAIN_BLOCKS}))]
+    for key, label, fn, expect in items:
+        ref = host(fn(torch.as_tensor(x_np)))
+        cpu32 = snr_db(ref, host(fn(torch.as_tensor(x_np, dtype=torch.float32))))
+        bars = {torch.float32: min(100.0, cpu32 - 6.0), torch.float64: 200.0}
+        for dt in dtypes:
+            xd = torch.as_tensor(x_np, dtype=dt, device=dev)
+            path = f"oneshot_{key}_{dname(dt)}"
+            out, used = driven(path, lambda: fn(xd), expect[dt])
+            assert used == expect[dt], (label, used)
+            yh = host(out)
+            assert yh.shape == ref.shape and np.all(np.isfinite(yh))
+            s = snr_db(ref, yh)
+            ms = time_ms(torch, lambda: fn(xd), reps=3, warmup=1)
+            print(f"modulation oneshot {label} {CHANNELS}x{N_FLAGSHIP} {dname(dt)}: "
+                  f"launches {json.dumps(used)}, vs the CPU path in float64 SNR "
+                  f"{s:.1f} dB (bar >= {bars[dt]:.1f}; the CPU path's float32 "
+                  f"{cpu32:.1f}) {'ok' if s >= bars[dt] else 'FAILED'}; {ms:.4f} ms, "
+                  f"{N_FLAGSHIP / SR * 1e3 / ms:.1f}x real time ({gpu})")
+            assert s >= bars[dt], (label, dt)
+
+    # -- M1-M3's times beside their bounds -----------------------------------------
+    mhz = dynfb.sm_clock_mhz()
+    c, n = CHAIN_CH, CHAIN_BLOCK
+    x32 = on(noise(c, n), torch.float32)
+    fl = fl_chain
+    buf = on(noise(c, fl.buf_len, scale=0.3), torch.float32)
+    w0 = torch.zeros((), dtype=torch.int32, device=dev)
+    d = fl.lags(torch.tensor(0.0, device=dev), n, x32)
+    nd_args = phaser_args(c, n, 6, torch.float32)
+    two_args = autowah_args(CHANNELS, N_FLAGSHIP, torch.float32)
+    lag = int(math.floor(fl.base_delay * SR))
+    chunk_cycles = feedback.ring_chunk_cycles(fl.buf_len, lag)
+    nd_cycles = linrec.scan_step_cycles(7)
+    two_cycles = linrec.scan_step_cycles(2)
+    dnd = nd_args[0].shape[-1]
+    nn = nd_args[0].shape[0]
+    timings = {
+        "flanger_feedback": (
+            lambda: feedback.flanger_feedback(fl, buf, w0, x32, d),
+            lambda: feedback.flanger_feedback_plain(fl, buf, w0, x32, d),
+            f"per mod-chain block, {c} x {n} float32 (the graph's flanger)",
+            4.0 * (2 * c * n + n + 2 * c * fl.buf_len), M1_SAMPLE_OPS * c * n,
+            -(-n // 32) * chunk_cycles,
+            f"{-(-n // 32)} chunks x {chunk_cycles:.1f} cycles (one warp's "
+            f"dependent ring load and store a chunk, lag {lag})"),
+        "affine_scan_nd": (
+            lambda: linrec.affine_scan_nd(*nd_args),
+            lambda: linrec.affine_scan_nd_plain(*nd_args),
+            f"per mod-chain block, {c} x {nn} steps, d = {dnd}, float32 (the "
+            f"graph's phaser)",
+            4.0 * (nn * dnd * dnd + 2 * c * nn * dnd + 2 * c * dnd),
+            2 * dnd * dnd * c * nn, nn * nd_cycles,
+            f"{nn} steps x {nd_cycles:.1f} cycles"),
+        "affine2_scan": (
+            lambda: linrec.affine2_scan(*two_args),
+            lambda: linrec.affine2_scan_plain(*two_args),
+            f"per AutoWah call, {CHANNELS} x {N_FLAGSHIP} float32",
+            4.0 * (8 * CHANNELS * N_FLAGSHIP + 4 * CHANNELS),
+            M3_STEP_OPS * CHANNELS * N_FLAGSHIP, N_FLAGSHIP * two_cycles,
+            f"{N_FLAGSHIP} steps x {two_cycles:.1f} cycles")}
+    for name, (call, plain_call, at, nbytes, ops, chain_cycles, how) in timings.items():
+        k = kernels[name]
+        k["ms_at"] = at
+        k["ms"] = graph_ms(torch, call, 20)
+        k["call_ms"] = time_ms(torch, call, 20)
+        k["plain_ms"] = time_ms(torch, plain_call, 1, warmup=0)
+        k["bound_ms"], k["bound_by"] = bound(nbytes, float(ops))
+        k["library_ms"] = None
+        k["sm_mhz"] = mhz
+        k["chain_bound_ms"] = {at: chain_cycles / mhz * 1e-3}
+        cb = k["chain_bound_ms"][at]
+        print(f"time {name} {at}: kernel {k['ms']:.4f} ms (graph replay; "
+              f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}, "
+              f"{100 * k['bound_ms'] / k['ms']:.1f}% of the kernel), chain bound "
+              f"{cb:.6f} ms ({how} / {mhz:.0f} MHz, {100 * cb / k['ms']:.1f}% of "
+              f"the kernel), plain {k['plain_ms']:.4f} ms, library none ({gpu})")
+    for name in names:
+        kernels[name]["launches"] = sum(kernels[name]["by_path"].values())
+    print(f"modulation launches by path: "
+          f"{json.dumps({n: {p: v for p, v in kernels[n]['by_path'].items() if v} for n in names})}"
+          f"; phase {time.perf_counter() - t_ph:.2f} s")
+    assert all(kernels[n]["by_path"].get("mod_chain_float32", 0) == CHAIN_BLOCKS
+               for n in ("flanger_feedback", "affine_scan_nd"))
+    assert kernels["affine2_scan"]["by_path"]["oneshot_autowah_float32"] == 1
 
 
 def main() -> int:
@@ -3931,7 +4370,12 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = sum(k["by_path"].values())
 
-    # -- 12. kernel list ----------------------------------------------------------
+    # -- 12. modulation: the modulation and waveshaping families (M1-M3) -----------
+    modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan)
+    for name, k in kernels.items():
+        k["launches"] = sum(k["by_path"].values())
+
+    # -- 13. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],

@@ -9,8 +9,9 @@
   envelope, FDL and Moog calls go through their autograd Functions; the
   calls with no backward on the card (the explicit-state cascade, the raw
   envelope kernel, the feedback dynamics detector D1, the delay and
-  reverb feedback loops R1-R3) refuse a tensor that requires grad
-  instead of cutting the gradient.
+  reverb feedback loops R1-R3, the flanger's loop M1 and the affine
+  scans M2 and M3) refuse a tensor that requires grad instead of cutting
+  the gradient.
 """
 
 import ast
@@ -23,16 +24,18 @@ import pytest
 import torch
 
 import algodsp_tpu_torch
-from algodsp_tpu_torch import _build, convert, core, resample, signal, spectrum, window
+from algodsp_tpu_torch import (_build, convert, core, delayline, resample, signal,
+                               spectrum, window)
 from algodsp_tpu_torch.chain import Chain
 from algodsp_tpu_torch.conv import OverlapAdd, OverlapSave, PartitionedConvolver, conv
+from algodsp_tpu_torch.effects import modulation, waveshape
 from algodsp_tpu_torch.effects.delay_effect import Delay
 from algodsp_tpu_torch.effects.dynamics import Compressor
 from algodsp_tpu_torch.effects.reverb import FDNReverb, Freeverb
 from algodsp_tpu_torch.filters import BiquadChain, bank
 from algodsp_tpu_torch.filters.moog import MoogFilter
 from algodsp_tpu_torch.ops import biquad_cascade as bq, dynfb, envscan, fdlconv, moog
-from algodsp_tpu_torch.ops import feedback
+from algodsp_tpu_torch.ops import feedback, linrec
 from algodsp_tpu_torch.pipeline import flagship_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,7 +66,10 @@ def test_import_leaves_jax_out():
             "algodsp_tpu_torch.effects.reverb.freeverb",
             "algodsp_tpu_torch.effects.reverb.fdn", "algodsp_tpu_torch.conv.overlap",
             "algodsp_tpu_torch.conv.correlate",
-            "algodsp_tpu_torch.conv.deconvolve"} <= set(modules)
+            "algodsp_tpu_torch.conv.deconvolve", "algodsp_tpu_torch.interp",
+            "algodsp_tpu_torch.delayline",
+            "algodsp_tpu_torch.effects.modulation.modulation",
+            "algodsp_tpu_torch.effects.waveshape"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -133,6 +139,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda device=None: FDNReverb(48000.0).init_state((2,), device=device),
         lambda device=None: OverlapSave(np.ones(8)).init_state((2,), device=device),
         lambda device=None: OverlapAdd(np.ones(8), 16).init_state((2,), device=device),
+        lambda device=None: delayline.DelayLine(8).init_state((2,), device=device),
+    ] + [
+        lambda device=None, fx=fx: fx.init_state((2,), device=device)
+        for fx in (modulation.Chorus(48000.0), modulation.Flanger(48000.0),
+                   modulation.Phaser(48000.0), modulation.Tremolo(48000.0),
+                   modulation.RingModulator(48000.0), modulation.AutoWah(48000.0),
+                   modulation.FrequencyShifter(48000.0), waveshape.Distortion(),
+                   waveshape.BitCrusher(48000.0),
+                   waveshape.TransformerSimulation(48000.0),
+                   waveshape.HarmonicBass(48000.0))
     ]
     for call in calls + analysis:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -179,12 +195,17 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     monkeypatch.setattr(moog, "moog_zdf_plain", plain_called)
     monkeypatch.setattr(dynfb, "dynamics_feedback_plain", plain_called)
     for name in ("delay_feedback_plain", "freeverb_feedback_plain",
-                 "fdn_feedback_plain"):
+                 "fdn_feedback_plain", "flanger_feedback_plain"):
         monkeypatch.setattr(feedback, name, plain_called)
+    for name in ("affine2_scan_plain", "affine_scan_nd_plain"):
+        monkeypatch.setattr(linrec, name, plain_called)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
     fb = Compressor(48000.0).core.feedback_params()
     for call in _feedback_calls(_FakeCuda):
         with pytest.raises(RuntimeError, match="no kernel library feedback"):
+            call()
+    for call in _affine_calls(_FakeCuda):
+        with pytest.raises(RuntimeError, match="no kernel library affine"):
             call()
     with pytest.raises(RuntimeError, match="no kernel library dynamics"):
         dynfb.dynamics_feedback(_FakeCuda(2, 256), _FakeCuda(2), _FakeCuda(2),
@@ -204,7 +225,9 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
     for wrapper in (bq.biquad_cascade, envscan.envelope_scan_kernel,
                     fdlconv.fdl_conv, moog.moog_ladder, moog.moog_zdf,
                     dynfb.dynamics_feedback, feedback.delay_feedback,
-                    feedback.freeverb_feedback, feedback.fdn_feedback):
+                    feedback.freeverb_feedback, feedback.fdn_feedback,
+                    feedback.flanger_feedback, linrec.affine2_scan,
+                    linrec.affine_scan_nd):
         assert isinstance(wrapper.launches, int)
 
 
@@ -212,6 +235,7 @@ def _feedback_calls(make, x_grad=False):
     """R1-R3's wrappers on (fake) CUDA tensors made by make(*shape, ...);
     x requires grad where x_grad."""
     dl, fv, rv = Delay(48000.0), Freeverb(), FDNReverb(48000.0)
+    fl = modulation.Flanger(48000.0)
     x = lambda: make(2, 256, requires_grad=x_grad)
     fv_state = lambda: {"combs": [make(2, n) for n in (1116, 1188, 1277, 1356,
                                                         1422, 1491, 1557, 1617)],
@@ -223,7 +247,21 @@ def _feedback_calls(make, x_grad=False):
                                         make(256)),
         lambda: feedback.freeverb_feedback(fv, fv_state(), x()),
         lambda: feedback.fdn_feedback(rv, make(2, 8, rv.line_len), make(2, 8),
-                                      make(), make(), x(), make(2, 256))]
+                                      make(), make(), x(), make(2, 256)),
+        lambda: feedback.flanger_feedback(fl, make(2, fl.buf_len), make(), x(),
+                                          make(256))]
+
+
+def _affine_calls(make, x_grad=False):
+    """M3's and M2's wrappers on (fake) CUDA tensors; the offsets require
+    grad where x_grad."""
+    return [
+        lambda: linrec.affine2_scan(make(2, 256, 4), make(2, 256, 2,
+                                                          requires_grad=x_grad),
+                                    make(2, 2)),
+        lambda: linrec.affine_scan_nd(make(256, 7, 7), make(2, 256, 7,
+                                                            requires_grad=x_grad),
+                                      make(2, 7))]
 
 
 def test_kernel_wrappers_refuse_grad(monkeypatch):
@@ -260,7 +298,8 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
         lambda: dynfb.dynamics_feedback(_FakeCuda(2, 256), g(2), _FakeCuda(2),
                                         fb),
     ]
-    for call in refused + _feedback_calls(_FakeCuda, x_grad=True):
+    for call in (refused + _feedback_calls(_FakeCuda, x_grad=True)
+                 + _affine_calls(_FakeCuda, x_grad=True)):
         with pytest.raises(NotImplementedError, match="no backward on the card"):
             call()
     with torch.no_grad():
@@ -268,6 +307,9 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
             dynfb.dynamics_feedback(g(2, 256), _FakeCuda(2), _FakeCuda(2), fb)
         for call in _feedback_calls(_FakeCuda, x_grad=True):
             with pytest.raises(RuntimeError, match="no kernel library feedback"):
+                call()
+        for call in _affine_calls(_FakeCuda, x_grad=True):
+            with pytest.raises(RuntimeError, match="no kernel library affine"):
                 call()
     launched = [
         ("biquad_cascade", lambda: bq.biquad_cascade(g(2, 256), sos)),
@@ -315,7 +357,7 @@ def test_wrappers_refuse_other_devices():
                                 torch.empty(2, device="meta"),
                                 Compressor(48000.0).core.feedback_params())
     on_meta = lambda *shape, requires_grad=False: torch.empty(shape, device="meta")
-    for call in _feedback_calls(on_meta):
+    for call in _feedback_calls(on_meta) + _affine_calls(on_meta):
         with pytest.raises(ValueError):
             call()
 
