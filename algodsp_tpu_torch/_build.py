@@ -24,17 +24,18 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("affine", "biquad_cascade", "dynamics", "envelope",
-                  "fdlconv", "feedback", "moog")
+KERNEL_SOURCES = ("affine", "biquad_cascade", "dither", "dynamics",
+                  "envelope", "fdlconv", "feedback", "moog", "wsola")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # per source: csrc/moog.cu fuses a product and a sum only where it says so
-# (its kernel instances must round alike); csrc/dynamics.cu and
-# csrc/feedback.cu round every product and sum by themselves, as their
-# plain versions do
+# (its kernel instances must round alike); csrc/dynamics.cu,
+# csrc/feedback.cu, csrc/dither.cu and csrc/wsola.cu round every product
+# and sum by themselves, as their plain versions do
 EXTRA_FLAGS = {"moog": ("-fmad=false",), "dynamics": ("-fmad=false",),
-               "feedback": ("-fmad=false",)}
+               "feedback": ("-fmad=false",), "dither": ("-fmad=false",),
+               "wsola": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -8,18 +8,22 @@ full family x kind designer matrix like the webdemo's FilterDesigner
 (`internal/webdemo/eq.go:91-302`), plus the Moog family with
 order-derived oversampling.
 
-The port registers the node types whose modules it has: the ten filter
-keys (`filter-moog` included), the dynamics family (`dyn-compressor`,
-feed-forward or feedback, `dyn-limiter`, `dyn-lookahead`, `dyn-gate`,
-`dyn-expander`, `dyn-deesser`, `dyn-transient`, `dyn-multiband`),
-`split-freq` (two output ports: low, high), `delay` (its integer-lag
-echo train as an LTI descriptor, so `Chain.fuse_lti` folds it), the
-reverbs (`reverb`, switching on `model`, `reverb-freeverb`,
-`reverb-fdn`, `reverb-conv`), `delay-simple`, `widener`, the modulation
-family (`chorus`, `flanger`, `ringmod`, `phaser`, `tremolo`) and the
-waveshapers (`bitcrusher`, `distortion`, `dist-cheb`, `transformer`,
-`bass`). Every other type of the JAX package's default registry raises
-KeyError saying that it is not ported yet (ROADMAP.md lists them).
+The port registers every node type of the JAX package's default
+registry: the ten filter keys (`filter-moog` included), the dynamics
+family (`dyn-compressor`, feed-forward or feedback, `dyn-limiter`,
+`dyn-lookahead`, `dyn-gate`, `dyn-expander`, `dyn-deesser`,
+`dyn-transient`, `dyn-multiband`), `split-freq` (two output ports: low,
+high), `delay` (its integer-lag echo train as an LTI descriptor, so
+`Chain.fuse_lti` folds it), the reverbs (`reverb`, switching on `model`,
+`reverb-freeverb`, `reverb-fdn`, `reverb-conv`), `delay-simple`,
+`widener`, the modulation family (`chorus`, `flanger`, `ringmod`,
+`phaser`, `tremolo`), the waveshapers (`bitcrusher`, `distortion`,
+`dist-cheb`, `transformer`, `bass`), `vocoder` (its carrier on port 1)
+and the one-shot processors `pitch-time`, `pitch-spectral`,
+`spectral-freeze` and `granular`, which keep no state and process each
+call's signal as a whole (run them through `Chain.process` on whole
+signals: `pitch-time` raises on a block shorter than its minimum
+length, as the reference does). An unknown type raises KeyError.
 
 Every runtime is a functional `NodeRuntime`: explicit state,
 `process(state, x, sidechain) -> (state, y)`, and
@@ -40,7 +44,8 @@ from algodsp_tpu_torch.chain.params import (
     normalize_deesser_detector, normalize_deesser_mode,
     normalize_distortion_mode, normalize_dynamics_detector,
     normalize_dynamics_topology, normalize_filter_family,
-    normalize_filter_kind, normalize_transformer_quality)
+    normalize_filter_kind, normalize_freeze_phase_mode,
+    normalize_transformer_quality)
 
 FILTER_TYPES = ("filter", "filter-lowpass", "filter-highpass",
                 "filter-bandpass", "filter-notch", "filter-allpass",
@@ -48,9 +53,8 @@ FILTER_TYPES = ("filter", "filter-lowpass", "filter-highpass",
                 "filter-moog")
 
 # Types of the JAX package's default registry that wait for their
-# modules, in the order ROADMAP.md ports them.
-NOT_PORTED = ("spectral-freeze", "granular", "vocoder", "pitch-time",
-              "pitch-spectral")
+# modules: none are left.
+NOT_PORTED = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +102,12 @@ def empty_state(batch_shape=(), dtype=torch.float32, device=None):
     return {}
 
 
+def _stateless(fn) -> NodeRuntime:
+    """A one-shot processor fn(x) as a node that keeps no state."""
+    return NodeRuntime(init_state=empty_state,
+                       process=lambda st, x, sc: (st, fn(x)))
+
+
 def _stateful(fx, *, sidechain: bool = False) -> NodeRuntime:
     if sidechain:
         def proc(st, x, sc):
@@ -109,8 +119,7 @@ def _stateful(fx, *, sidechain: bool = False) -> NodeRuntime:
 
 
 def default_registry() -> Registry:
-    """The registry of the node types the port has (the ported part of
-    `registry_defaults.go:48-300`)."""
+    """The registry of every node type (`registry_defaults.go:48-300`)."""
     from algodsp_tpu_torch._device import resolve_device
     from algodsp_tpu_torch.effects.dynamics import (
         BandConfig, Compressor, DeEsser, DetectorMode, Expander, Gate,
@@ -119,8 +128,13 @@ def default_registry() -> Registry:
     from algodsp_tpu_torch.effects.delay_effect import Delay
     from algodsp_tpu_torch.effects.modulation import (Chorus, Flanger, Phaser,
                                                       RingModulator, Tremolo)
+    from algodsp_tpu_torch.effects.pitch import (SpectralPitchShifter,
+                                                 WSOLAPitchShifter)
     from algodsp_tpu_torch.effects.reverb import (ConvolutionReverb,
                                                   FDNReverb, Freeverb)
+    from algodsp_tpu_torch.effects.spectral import (FreezePhaseMode, Granular,
+                                                    SpectralFreeze)
+    from algodsp_tpu_torch.effects.vocoder import Vocoder
     from algodsp_tpu_torch.effects.waveshape import (
         BitCrusher, Distortion, DistortionMode, HarmonicBass,
         TransformerQuality, TransformerSimulation)
@@ -318,6 +332,57 @@ def default_registry() -> Registry:
     for key in FILTER_TYPES:
         r.register(key, _filter_factory(key))
 
+    # -- pitch / spectral (one-shot processors wrapped stateless) ---------
+    r.register("pitch-time", lambda ctx, p: _stateless(
+        WSOLAPitchShifter(
+            ctx.sample_rate,
+            pitch_ratio=2.0 ** (get_num(p, "semitones", 0, -24, 24) / 12.0),
+            sequence_ms=get_num(p, "sequence", 40, 20, 120),
+            overlap_ms=get_num(p, "overlap", 10, 4, 60),
+            seek_window_ms=get_num(p, "search", 15, 2, 40)).process))
+
+    def _frame_and_hop(p, default_frame):
+        frame = get_int(p, "frameSize", default_frame, 64, 8192)
+        if frame & (frame - 1):
+            frame = 1 << int(np.ceil(np.log2(frame)))
+        hop = max(int(round(frame * get_num(p, "hopRatio", 0.25,
+                                            0.01, 0.99))), 1)
+        return frame, hop
+
+    def _pitch_spectral(ctx, p):
+        frame, hop = _frame_and_hop(p, 1024)
+        return _stateless(SpectralPitchShifter(
+            ctx.sample_rate,
+            pitch_ratio=2.0 ** (get_num(p, "semitones", 0, -24, 24) / 12.0),
+            frame_size=frame, analysis_hop=hop).process)
+    r.register("pitch-spectral", _pitch_spectral)
+
+    def _freeze(ctx, p):
+        frame, hop = _frame_and_hop(p, 2048)
+        return _stateless(SpectralFreeze(
+            ctx.sample_rate, frame_size=frame, hop_size=hop,
+            frozen=get_bool(p, "frozen", 1.0),
+            mix=get_num(p, "mix", 1, 0, 1),
+            phase_mode=(FreezePhaseMode.HOLD
+                        if normalize_freeze_phase_mode(
+                            get_str(p, "phaseMode")) == "hold"
+                        else FreezePhaseMode.ADVANCE)).process)
+    r.register("spectral-freeze", _freeze)
+
+    def _granular(ctx, p):
+        pitch = get_num(p, "pitch", 1, 0.25, 4)
+        if "pitch" not in p and "semitones" in p:
+            pitch = clamp(2.0 ** (get_num(p, "semitones", 0) / 12.0), 0.25, 4)
+        return _stateless(Granular(
+            ctx.sample_rate,
+            grain_seconds=get_num(p, "grainSeconds", 0.08, 0.005, 0.5,
+                                  aliases=("grain",)),
+            overlap=get_num(p, "overlap", 0.5, 0, 0.95),
+            pitch=pitch,
+            spray_seconds=get_num(p, "spray", 0.1, 0, 1),
+            mix=get_num(p, "mix", 1, 0, 1)).process)
+    r.register("granular", _granular)
+
     # -- reverbs (runtime_filter_pitch_reverb.go:325-380, runtime_misc.go) --
     def _freeverb(ctx, p):
         return _stateful(Freeverb(
@@ -479,6 +544,15 @@ def default_registry() -> Registry:
         return _stateful(MultibandCompressor(freqs, order, ctx.sample_rate,
                                              configs=cfg))
     r.register("dyn-multiband", _multiband)
+
+    # -- vocoder (sidechain = carrier; runtime_misc.go:80-100) ------------
+    r.register("vocoder", lambda ctx, p: _stateful(Vocoder(
+        ctx.sample_rate,
+        attack_ms=get_num(p, "attackMs", 0.5, 0.01, 100),
+        release_ms=get_num(p, "releaseMs", 2.0, 0.01, 1000),
+        input_level=get_num(p, "inputLevel", 0, 0, 10),
+        synth_level=get_num(p, "synthLevel", 0, 0, 10),
+        vocoded_level=get_num(p, "vocoderLevel", 1, 0, 10)), sidechain=True))
 
     # -- split-freq (2 output ports: lo, hi) ------------------------------
     def _split_freq(ctx, p):

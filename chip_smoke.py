@@ -137,9 +137,10 @@ Phases, each printing its own lines:
                float64, two calls bit-equal to one); SPACE_GRAPH (low-cut
                -> delay -> Freeverb -> FDN) streamed over 64 ch x 94
                blocks of 512 in float32 and float64 and fused (low-cut and
-               delay in one FIR on K1), each against the CPU path in
-               float64 with its launches per block, no plain version
-               called, ms per block, real-time factor and device time;
+               delay in one FIR on K1), each with its first 32 blocks
+               against the CPU path in float64, with its launches per
+               block, no plain version called, ms per block, real-time
+               factor and device time;
                Freeverb, the FDN and the Delay (retargeted mid-stream) as
                one-shot renders at 8 x 48128; direct, convolve, the
                overlap convolvers streamed, correlate (the peak lags) and
@@ -161,7 +162,30 @@ Phases, each printing its own lines:
                FrequencyShifter at +-100 Hz and the Chorus, Phaser and
                Flanger (one call, then 94 blocks) at 8 x 48128; M1-M3's
                times beside their byte and chain bounds;
- 13. kernels — the line of every kernel with its launches by path.
+ 13. voice — the last effects and the dither quantizer: W1 (the WSOLA
+               alignment search) against its plain version on the card
+               (the music preset at +3, -4 and +12 semitones and the
+               pitch-time node at +3, 8 x 48128, float32 and float64; the
+               starts equal, the smallest best/second score gap printed);
+               Q1 (the quantizer's error-feedback loop) bit-equal to its
+               plain version (codes and state, FIR and IIR shelf, float32
+               and float64, the export block and a ragged shape; 94
+               streamed blocks bit-equal to one call);
+               VOICE_GRAPH (the input ring-modulated as the vocoder's
+               carrier on port 1) over 64 ch x 94 blocks of 512 (K4 once a
+               block on 2,048 band rows); the stereo strip on 32 pairs
+               (widener with a 120 Hz bass-mono split, canceller,
+               parametric simulator; K3) and a 4096-tap HRTF-set simulator
+               in both routings (K1), streamed against one call; the
+               mastering export (16-bit TPDF, FC9 and the 8 kHz IIR shelf;
+               Q1) over 64 ch x 94 blocks and one-shot at 8 x 48128; at 8 x
+               48128 PITCH_GRAPH (pitch-time +3 -> granular ->
+               spectral-freeze), pitch-spectral at -4 and +1 and WSOLA at
+               +3, -4 and +12 (two calls bit-equal); each against the CPU
+               path in float64 with its launches, no plain version called,
+               ms and real-time factor; W1's and Q1's times beside their
+               byte, operation and chain bounds;
+ 14. kernels — the line of every kernel with its launches by path.
 The line before the last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. There is
 no CPU fallback: without CUDA, or without the package beside this file,
@@ -1037,6 +1061,10 @@ SPACE_GRAPH = {
 # at a time, and a retargeted Delay's read positions round at its
 # 96,128-sample ring's magnitude).
 SPACE_DB = {"float32": 100.0, "float64": 200.0}
+# The space chain's first 32 blocks (0.34 s: the 0.25 s delay's first echo
+# included) are held against the CPU path: its 94 blocks took ~31 s a
+# type on the CPU, which kept the whole script near its 600 s budget.
+SPACE_CPU_BLOCKS = 32
 
 
 def space_bar32(cpu32: float) -> float:
@@ -1060,8 +1088,9 @@ def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
     against their plain versions on the card (C = 65, the chain block, a
     ragged length, lags under 130 and under a chunk, float32 and float64,
     two calls bit-equal to one); SPACE_GRAPH streamed over 64 ch x 94
-    blocks of 512 (float32 and float64) and fused (float32) against the
-    CPU path in float64, with launches per block, no plain version called,
+    blocks of 512 (float32 and float64) and fused (float32), the first
+    SPACE_CPU_BLOCKS blocks against the CPU path in float64, with
+    launches per block, no plain version called,
     ms per block, real-time factor and the profiler's device time; the
     one-shot renders at 8 x 48128; the conv items at 8 x 48128 with the
     cuDNN TF32 check; R1-R3's times beside their bounds. R1-R3 join the
@@ -1266,16 +1295,18 @@ def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
                       4800, axis=1)[:, :n_chain]
     xs_np = (rng.standard_normal((CHAIN_CH, n_chain)) * burst).astype(np.float32)
     raw = json.dumps(SPACE_GRAPH)
+    n_cpu = SPACE_CPU_BLOCKS * CHAIN_BLOCK
     ch_cpu = Chain(SR)
     assert ch_cpu.load_graph(raw, auto_fuse=False) == []
     t0 = time.perf_counter()
     _, y_cpu = ch_cpu.process_blocks(
         ch_cpu.init_state((CHAIN_CH,), torch.float64, "cpu"),
-        torch.as_tensor(xs_np, dtype=torch.float64))
+        torch.as_tensor(xs_np[:, :n_cpu], dtype=torch.float64))
     cpu_s = time.perf_counter() - t0
     y_cpu = y_cpu.numpy()
     _, y_cpu32 = ch_cpu.process_blocks(
-        ch_cpu.init_state((CHAIN_CH,), torch.float32, "cpu"), torch.as_tensor(xs_np))
+        ch_cpu.init_state((CHAIN_CH,), torch.float32, "cpu"),
+        torch.as_tensor(xs_np[:, :n_cpu]))
     cpu32 = snr_db(y_cpu, y_cpu32.numpy())
     bars = {torch.float32: space_bar32(cpu32), torch.float64: SPACE_DB["float64"]}
     space_ms = {}
@@ -1289,11 +1320,12 @@ def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
         assert used == {n: CHAIN_BLOCKS for n in names}, used
         yh = host(ys)
         assert yh.shape == (CHAIN_CH, n_chain) and np.all(np.isfinite(yh))
-        s = snr_db(y_cpu, yh)
+        s = snr_db(y_cpu, yh[:, :n_cpu])
         print(f"space {path} {CHAIN_CH}x{n_chain} ({CHAIN_BLOCKS} blocks): "
               f"launches per block {json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}"
-              f", plain versions called 0; vs the CPU path in float64 (its "
-              f"{cpu_s:.2f} s; its float32 run {cpu32:.1f} dB) SNR {s:.1f} dB "
+              f", plain versions called 0; the first {SPACE_CPU_BLOCKS} blocks vs "
+              f"the CPU path in float64 (its {cpu_s:.2f} s; its float32 run "
+              f"{cpu32:.1f} dB) SNR {s:.1f} dB "
               f"(bar >= {bars[dt]:.1f}) {'ok' if s >= bars[dt] else 'FAILED'}")
         assert s >= bars[dt], path
         st_t = ch.init_state((CHAIN_CH,), dt, dev)
@@ -1320,12 +1352,13 @@ def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
                            ("fdl_conv", "freeverb_feedback", "fdn_feedback"))
     assert used == {"fdl_conv": CHAIN_BLOCKS, "freeverb_feedback": CHAIN_BLOCKS,
                     "fdn_feedback": CHAIN_BLOCKS}, used
-    s = snr_db(y_cpu, host(yf))
+    s = snr_db(y_cpu, host(yf)[:, :n_cpu])
     fused_ms = time_ms(torch, lambda: ch_f.process_blocks(st_f, xs), reps=1,
                        warmup=0) / CHAIN_BLOCKS
     print(f"space space_chain_fused float32 (fusion report {report}): launches "
           f"per block {json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}, "
-          f"plain versions called 0; vs the unfused CPU path in float64 SNR "
+          f"plain versions called 0; the first {SPACE_CPU_BLOCKS} blocks vs the "
+          f"unfused CPU path in float64 SNR "
           f"{s:.1f} dB (bar >= {bars[torch.float32]:.1f}) "
           f"{'ok' if s >= bars[torch.float32] else 'FAILED'}; "
           f"{fused_ms:.4f} ms a block, real-time factor {block_ms / fused_ms:.2f} "
@@ -1939,6 +1972,511 @@ def modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> N
     assert all(kernels[n]["by_path"].get("mod_chain_float32", 0) == CHAIN_BLOCKS
                for n in ("flanger_feedback", "affine_scan_nd"))
     assert kernels["affine2_scan"]["by_path"]["oneshot_autowah_float32"] == 1
+
+
+# Phase 13: the last effects and the dither quantizer, at the chain cell's
+# width. VOICE_GRAPH is a vocal bus: the input ring-modulated at the
+# registry's 440 Hz is the vocoder's carrier on port 1 (a robot voice),
+# every node at the registry's defaults (K4 once a block on 64 x 32 band
+# rows). PITCH_GRAPH is a one-shot pitch strip at the registry's defaults:
+# pitch-time at +3 semitones (W1) -> granular -> spectral-freeze.
+VOICE_GRAPH = {
+    "nodes": [{"id": "ring", "type": "ringmod", "params": {}},
+              {"id": "voc", "type": "vocoder", "params": {}}],
+    "connections": [{"from": "_input", "to": "voc"},
+                    {"from": "_input", "to": "ring"},
+                    {"from": "ring", "to": "voc", "toPortIndex": 1},
+                    {"from": "voc", "to": "_output"}]}
+PITCH_GRAPH = {
+    "nodes": [{"id": "shift", "type": "pitch-time", "params": {"semitones": 3}},
+              {"id": "grain", "type": "granular", "params": {}},
+              {"id": "freeze", "type": "spectral-freeze", "params": {}}],
+    "connections": [{"from": "_input", "to": "shift"},
+                    {"from": "shift", "to": "grain"},
+                    {"from": "grain", "to": "freeze"},
+                    {"from": "freeze", "to": "_output"}]}
+STRIP_PAIRS = 32        # the stereo strip: 32 pairs, (32, 2, N)
+HRTF_TAPS = 4096        # a binaural room response's length (85 ms)
+CPU_BLOCKS = 8          # blocks of the chains held against the CPU path
+
+
+def q1_step_ops(order: int) -> int:
+    """Operations of a Q1 FIR step, counting floor as one (so the bound
+    is a floor): a product and a sum a coefficient (2 order - 1), the
+    subtraction, the dither's add, the floor, the clip's two compares and
+    the error (6)."""
+    return 2 * order - 1 + 6
+
+
+def voice_material(rng, c: int, n: int):
+    """Smoothed noise under a stepped level (correlation peaks well apart
+    for the WSOLA search, as the JAX tests' material), float64."""
+    x = np.stack([np.convolve(rng.standard_normal(n), np.ones(8) / 8.0,
+                              mode="same") for _ in range(c)])
+    return 1.5 * x * np.repeat(rng.uniform(0.1, 1.0, (c, -(-n // 1024))), 1024,
+                               axis=1)[:, :n]
+
+
+def hrtf_set(rng, taps: int) -> dict:
+    """A synthetic 4-path binaural room response from a seed: a direct
+    impulse and a decaying noise tail on the direct paths, a delayed
+    (0.3 ms), weaker impulse and tail on the cross paths."""
+    decay = np.exp(-np.arange(taps) / (0.2 * taps))
+
+    def path(lead: int, gain: float):
+        h = 0.05 * gain * rng.standard_normal(taps) * decay
+        h[lead] += gain
+        return h
+    return {"left_direct": path(0, 1.0), "right_direct": path(0, 1.0),
+            "left_cross": path(14, 0.5), "right_cross": path(14, 0.5)}
+
+
+def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
+                fdlconv) -> None:
+    """Phase 13: the last effects and the dither quantizer on the card. W1
+    against its plain version on the card (the music preset at +3, -4 and
+    +12 semitones and the pitch-time node at +3, 8 x 48128, float32 and
+    float64: the starts equal, the smallest gap between the best and the
+    second-best normalised score printed); Q1 bit-equal to its plain
+    version (codes and state; the FIR at FC9 and the 8 kHz IIR shelf, the
+    export block and a ragged shape; 94 streamed blocks bit-equal to one
+    call); VOICE_GRAPH over 64 ch x 94 blocks of 512 and
+    the stereo strip on 32 pairs (widener with a 120 Hz bass-mono split,
+    canceller, parametric simulator) and the HRTF-set simulator in both
+    routings, each in float32 and float64 against the CPU path in float64,
+    with launches per block, no plain version called, ms per block,
+    real-time factor and busy share, streamed against one call; the
+    mastering export (16-bit TPDF at FC9 and with the IIR shelf) over 64
+    ch x 94 blocks and one-shot at 8 x 48128; PITCH_GRAPH, pitch-spectral
+    at -4 and +1 semitones and WSOLA at +3, -4 and +12 one-shot at 8 x
+    48128 (two calls bit-equal); W1's and Q1's times beside their byte,
+    operation and chain bounds. W1 and Q1 join the `kernels` line."""
+    from algodsp_tpu_torch.chain import Chain
+    from algodsp_tpu_torch.dither import Quantizer
+    from algodsp_tpu_torch.effects import spatial
+    from algodsp_tpu_torch.effects.pitch import WSOLAPitchShifter
+    from algodsp_tpu_torch.ops import dither as q1mod
+    from algodsp_tpu_torch.ops import dynfb
+    from algodsp_tpu_torch.ops import wsola as w1mod
+
+    t_ph = time.perf_counter()
+    names = ("wsola_search", "error_feedback")
+    earlier = list(next(iter(kernels.values()))["by_path"])
+    specs = {
+        "wsola_search": (
+            "algodsp_tpu_torch/csrc/wsola.cu", w1mod.wsola_search,
+            "algodsp_tpu/effects/pitch/wsola.py:112-141 (the segment search "
+            "of WSOLAPitchShifter._time_stretch, a lax.scan; no Pallas)"),
+        "error_feedback": (
+            "algodsp_tpu_torch/csrc/dither.cu", q1mod.error_feedback,
+            "algodsp_tpu/dither/quantizer.py:228-242 and :256-271 (Quantizer."
+            "_process_codes and _process_codes_iir, lax.scans; no Pallas)")}
+    for name, (source, wrapper, repl) in specs.items():
+        kernels[name] = {"route": "cuda", "source": source, "replaces": repl,
+                         "wrapper": wrapper, "errs": [],
+                         "by_path": {p: 0 for p in earlier}}
+    plain = [(w1mod, "wsola_search_plain"), (q1mod, "error_feedback_plain"),
+             (bqmod, "biquad_cascade_plain"), (envscan, "envelope_scan_plain"),
+             (fdlconv, "fdl_conv_plain")]
+    rng = np.random.default_rng(15)
+    dtypes = (torch.float32, torch.float64)
+    dname = lambda dt: str(dt)[6:]
+    block_ms = CHAIN_BLOCK / SR * 1e3
+    n_chain = CHAIN_BLOCKS * CHAIN_BLOCK
+    n_cpu = CPU_BLOCKS * CHAIN_BLOCK
+
+    def driven(path, fn, allowed):
+        """fn() with every launch counter at 0 before and read after, the
+        plain versions' calls counted (none may be called); the launches
+        go to `by_path`."""
+        for k in kernels.values():
+            k["wrapper"].launches = 0
+        with plain_calls(plain) as plain_n:
+            out = fn()
+            torch.cuda.synchronize()
+        launches = {n: k["wrapper"].launches for n, k in kernels.items()}
+        for n, k in kernels.items():
+            k["by_path"][path] = launches[n]
+        used = {n: v for n, v in launches.items() if v}
+        assert not any(plain_n.values()), (path, plain_n)
+        assert set(used) <= set(allowed), (path, used)
+        return out, used
+
+    def on(a, dt):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    def busy_line(act, ms):
+        parts = ", ".join(f"{k} {t:.4f}" for k, t in act["by_name"].items())
+        if act["ms"] is None:
+            return "device time not measured"
+        return (f"device {act['ms']:.4f} ms a block in {act['count']:.0f} "
+                f"kernels and copies ({parts}), busy {100 * act['ms'] / ms:.1f}% "
+                f"of the wall (profiler; {act['dropped']} records in one "
+                f"session only)")
+
+    # -- W1 against its plain version on the card --------------------------------
+    x8_np = voice_material(rng, CHANNELS, N_FLAGSHIP)
+    music = lambda st: WSOLAPitchShifter(SR, pitch_ratio=2.0 ** (st / 12.0))
+    node_ws = WSOLAPitchShifter(SR, pitch_ratio=2.0 ** (3 / 12.0),
+                                sequence_ms=40.0, overlap_ms=10.0,
+                                seek_window_ms=15.0)
+    w1_args = {}
+    for dt in dtypes:
+        for label, ws in (("music preset +3", music(3)), ("music preset -4", music(-4)),
+                          ("music preset +12", music(12)),
+                          ("pitch-time node +3 (seq 40, ov 10, seek 15 ms)", node_ws)):
+            rs, edge, tail0, n_ext = ws.plan(N_FLAGSHIP, 1.0 / ws.pitch_ratio)
+            x2 = torch.nn.functional.pad(on(x8_np, dt), (0, n_ext - N_FLAGSHIP))
+            args = (x2, w1mod.energy_prefix(x2), rs, edge, ws.overlap, ws.seek,
+                    ws.sequence - ws.overlap, tail0)
+            s_k = w1mod.wsola_search(*args)
+            s_p = w1mod.wsola_search_plain(*args)
+            s_k2 = w1mod.wsola_search(*args)
+            torch.cuda.synchronize()
+            equal, again = torch.equal(s_k, s_p), torch.equal(s_k, s_k2)
+            err = float(torch.max(torch.abs(s_k.long() - s_p.long())))
+            kernels["wsola_search"]["errs"].append(err)
+            # the smallest relative gap between the best and the second-best
+            # normalised score along the kernel's walk (loud, non-boundary
+            # steps): a float32 flip needs a gap near 1e-6
+            tail = torch.full((CHANNELS,), tail0, dtype=torch.int64, device=dev)
+            gaps = []
+            for s, a in enumerate(rs.tolist()):
+                score, norm2 = w1mod.step_scores(x2, args[1], a, tail, ws.overlap,
+                                                 ws.seek)
+                top = torch.topk(score, 2, dim=-1).values
+                loud = ~(torch.amax(norm2, dim=-1) <= 1e-12)
+                if not edge[s] and bool(loud.any()):
+                    gaps.append(((top[:, 0] - top[:, 1]) / top[:, 0].abs())[loud])
+                tail = s_k[s].long() + (ws.sequence - ws.overlap)
+            gap = float(torch.cat(gaps).min())
+            ok = equal and again
+            print(f"voice check wsola_search {dname(dt)} {label} {CHANNELS}x"
+                  f"{N_FLAGSHIP} (S={len(rs)}, seek {ws.seek}, ov {ws.overlap}): "
+                  f"starts equal to the plain version on the card {equal}, second "
+                  f"call equal {again}, smallest best/second score gap "
+                  f"{gap:.3e} (relative) {'ok' if ok else 'FAILED'}")
+            assert ok, label
+            w1_args[(label, dt)] = args
+
+    # -- Q1 against its plain version on the card, bit for bit ---------------------
+    quant = {"fir": Quantizer(SR), "iir": Quantizer(SR, iir_shelf_freq=8000.0)}
+
+    def q1_args(kind, c, n, dt):
+        qz = quant[kind]
+        x = np.clip(voice_material(rng, c, n), -1.0, 1.0)
+        noise = rng.uniform(0, 1, (c, n)) - rng.uniform(0, 1, (c, n))
+        state = 0.3 * rng.standard_normal((c, qz.shaper.state_width()))
+        return on(qz.bit_mul * x, dt), on(noise, dt), on(state, dt), qz.shaper
+
+    # (the plain version walks a sample at a time, ~0.4 ms a step on the
+    # card: the one-shot shape would take ~20 s; the streamed check below
+    # ties the kernel's long call to its blocks)
+    q1_cases = [("export block", CHAIN_CH, CHAIN_BLOCK), ("C=65 N=333", 65, 333)]
+    for kind in quant:
+        for dt in dtypes:
+            for label, c, n in q1_cases:
+                args = q1_args(kind, c, n, dt)
+                q_k, s_k = q1mod.error_feedback(*args)
+                q_p, s_p = q1mod.error_feedback_plain(*args)
+                torch.cuda.synchronize()
+                bit = bits_equal(torch, q_k, q_p) and bits_equal(torch, s_k, s_p)
+                err = float(torch.max(torch.abs(q_k - q_p)))
+                kernels["error_feedback"]["errs"].append(err)
+                print(f"voice check error_feedback {kind} {dname(dt)} {label} "
+                      f"{c}x{n}: codes and state bit-equal to the plain version "
+                      f"on the card {bit} {'ok' if bit else 'FAILED'}")
+                assert bit, (kind, dt, label)
+    # streamed in the chain's blocks, the kernel equals its one call
+    scaled, noise, state, p = q1_args("fir", CHAIN_CH, n_chain, torch.float32)
+    q_one, s_one = q1mod.error_feedback(scaled, noise, state, p)
+    st, parts = state, []
+    for b in range(CHAIN_BLOCKS):
+        cut = slice(b * CHAIN_BLOCK, (b + 1) * CHAIN_BLOCK)
+        q_b, st = q1mod.error_feedback(scaled[:, cut], noise[:, cut], st, p)
+        parts.append(q_b)
+    streamed = bits_equal(torch, torch.cat(parts, -1), q_one) and bits_equal(
+        torch, st, s_one)
+    print(f"voice check error_feedback fir float32 {CHAIN_BLOCKS} blocks of "
+          f"{CHAIN_CH}x{CHAIN_BLOCK} against one call: bit-equal {streamed} "
+          f"{'ok' if streamed else 'FAILED'}")
+    assert streamed
+
+    # -- VOICE_GRAPH: 64 ch x 94 blocks of 512 ---------------------------------------
+    xs_np = voice_material(rng, CHAIN_CH, n_chain).astype(np.float32)
+    raw = json.dumps(VOICE_GRAPH)
+    ch_cpu = Chain(SR)
+    assert ch_cpu.load_graph(raw) == []
+    t0 = time.perf_counter()
+    _, y_cpu = ch_cpu.process_blocks(ch_cpu.init_state((CHAIN_CH,), torch.float64, "cpu"),
+                                     torch.as_tensor(xs_np[:, :n_cpu], dtype=torch.float64))
+    cpu_s = time.perf_counter() - t0
+    y_cpu = y_cpu.numpy()
+    _, y_cpu32 = ch_cpu.process_blocks(ch_cpu.init_state((CHAIN_CH,), torch.float32, "cpu"),
+                                       torch.as_tensor(xs_np[:, :n_cpu]))
+    cpu32 = snr_db(y_cpu, y_cpu32.numpy())
+    bars = {torch.float32: min(100.0, cpu32 - 6.0), torch.float64: 200.0}
+    for dt in dtypes:
+        path = f"voice_chain_{dname(dt)}"
+        ch = Chain(SR)
+        assert ch.load_graph(raw) == []
+        rows = CHAIN_CH * ch.runtimes["voc"].effect.num_bands
+        xs = torch.as_tensor(xs_np, dtype=dt, device=dev)
+        st = ch.init_state((CHAIN_CH,), dt, dev)
+        (st_f, ys), used = driven(path, lambda: ch.process_blocks(st, xs),
+                                  {"envelope"})
+        assert used == {"envelope": CHAIN_BLOCKS}, used
+        assert tuple(st_f["voc"]["env"].shape) == (CHAIN_CH, rows // CHAIN_CH)
+        yh = host(ys)
+        assert yh.shape == (CHAIN_CH, n_chain) and np.all(np.isfinite(yh))
+        s = snr_db(y_cpu, yh[:, :n_cpu])
+        print(f"voice {path} {CHAIN_CH}x{n_chain} ({CHAIN_BLOCKS} blocks): launches "
+              f"per block {json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}"
+              f" (K4 on {rows} band rows), plain versions called 0; the first "
+              f"{CPU_BLOCKS} blocks vs the CPU path in float64 (its {cpu_s:.2f} s; "
+              f"its float32 run {cpu32:.1f} dB) SNR {s:.1f} dB (bar >= "
+              f"{bars[dt]:.1f}) {'ok' if s >= bars[dt] else 'FAILED'}")
+        assert s >= bars[dt], path
+        st_t = ch.init_state((CHAIN_CH,), dt, dev)
+        ms = time_ms(torch, lambda: ch.process_blocks(st_t, xs), reps=2,
+                     warmup=1) / CHAIN_BLOCKS
+        act = device_activity(torch, lambda: ch.process(st_t, xs[:, :CHAIN_BLOCK]),
+                              10, ("envelope",))
+        print(f"time {path} per block ({CHAIN_CH}x{CHAIN_BLOCK}, mean over 2 x "
+              f"{CHAIN_BLOCKS} blocks of process_blocks): {ms:.4f} ms, real-time "
+              f"factor {block_ms / ms:.2f}; {busy_line(act, ms)} ({gpu})")
+
+    # -- the stereo strip on 32 pairs, and the HRTF-set simulator ---------------------
+    irs = hrtf_set(np.random.default_rng(15), HRTF_TAPS)
+
+    def strip_fx():
+        return [spatial.StereoWidener(SR, width=1.5, bass_mono_hz=120.0),
+                spatial.CrosstalkCanceller(SR), spatial.CrosstalkSimulator(SR)]
+
+    def run_fx(make, x, blocks):
+        fxs = make()
+        sts = [fx.init_state(x.shape[:-2], x.dtype, x.device) for fx in fxs]
+        blk = x.shape[-1] // blocks
+        outs = []
+        for b in range(blocks):
+            v = x[..., b * blk:(b + 1) * blk]
+            for i, fx in enumerate(fxs):
+                sts[i], v = fx.process(sts[i], v)
+            outs.append(v)
+        return torch.cat(outs, dim=-1)
+
+    probe = strip_fx()
+    k3_chains = [probe[0].lp, probe[0].hp, *probe[1].shelves, probe[2].shelf]
+    k3_per_block = sum(not c.has_slow_poles for c in k3_chains)
+    items = [("strip", "widener (120 Hz bass mono) -> canceller -> simulator",
+              strip_fx, {"biquad_cascade": k3_per_block}),
+             ("hrtf_crossfeed", f"HRTF-set simulator crossfeed_only ({HRTF_TAPS} taps)",
+              lambda: [spatial.CrosstalkSimulator(SR, hrtf_irs=irs)], {"fdl_conv": 2}),
+             ("hrtf_complete", f"HRTF-set simulator complete ({HRTF_TAPS} taps)",
+              lambda: [spatial.CrosstalkSimulator(SR, hrtf_irs=irs,
+                                                  hrtf_mode="complete")],
+              {"fdl_conv": 4})]
+    xst_np = voice_material(rng, 2 * STRIP_PAIRS, n_chain).reshape(
+        STRIP_PAIRS, 2, n_chain)
+    for key, label, make, per_block in items:
+        ref = host(run_fx(make, torch.as_tensor(xst_np[..., :n_cpu]), CPU_BLOCKS))
+        cpu32 = snr_db(ref, host(run_fx(make, torch.as_tensor(
+            xst_np[..., :n_cpu], dtype=torch.float32), CPU_BLOCKS)))
+        bars = {torch.float32: min(100.0, cpu32 - 6.0), torch.float64: 200.0}
+        for dt in dtypes:
+            path = f"stereo_{key}_{dname(dt)}"
+            expect = per_block if dt == torch.float32 else {}
+            xd = on(xst_np, dt)
+            out, used = driven(path, lambda: run_fx(make, xd, CHAIN_BLOCKS), expect)
+            want = {n: v * CHAIN_BLOCKS for n, v in expect.items() if v}
+            assert used == want, (path, used)
+            yh = host(out)
+            assert yh.shape == xst_np.shape and np.all(np.isfinite(yh))
+            s = snr_db(ref, yh[..., :n_cpu])
+            one = run_fx(make, xd, 1)
+            s_one = snr_db(host(one), yh)
+            one_bar = 100.0 if dt == torch.float32 else 200.0
+            ok = s >= bars[dt] and s_one >= one_bar
+            ms = time_ms(torch, lambda: run_fx(make, xd, CHAIN_BLOCKS), reps=1,
+                         warmup=0) / CHAIN_BLOCKS
+            print(f"voice {path} {label} {STRIP_PAIRS}x2x{n_chain} ({CHAIN_BLOCKS} "
+                  f"blocks): launches per block "
+                  f"{json.dumps({n: v / CHAIN_BLOCKS for n, v in used.items()})}, "
+                  f"plain versions called 0; the first {CPU_BLOCKS} blocks vs the "
+                  f"CPU path in float64 SNR {s:.1f} dB (bar >= {bars[dt]:.1f}; the "
+                  f"CPU path's float32 {cpu32:.1f}); streamed vs one call SNR "
+                  f"{s_one:.1f} dB (bar >= {one_bar:.0f}) "
+                  f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms a block, real-time "
+                  f"factor {block_ms / ms:.2f} ({gpu})")
+            assert ok, path
+        if key == "strip":
+            xd = on(xst_np, torch.float32)
+            fxs = strip_fx()
+            sts = [fx.init_state((STRIP_PAIRS,), torch.float32, dev) for fx in fxs]
+
+            def one_block():
+                v = xd[..., :CHAIN_BLOCK]
+                for i, fx in enumerate(fxs):
+                    _, v = fx.process(sts[i], v)
+                return v
+            act = device_activity(torch, one_block, 10, ("biquad_",))
+            ms = time_ms(torch, one_block, 20)
+            print(f"time stereo_strip_float32 per block ({STRIP_PAIRS}x2x"
+                  f"{CHAIN_BLOCK}): {ms:.4f} ms; {busy_line(act, ms)} ({gpu})")
+
+    # -- the mastering export: 16-bit TPDF at FC9, and with the 8 kHz shelf --------
+    xe_np = np.clip(voice_material(rng, CHAIN_CH, n_chain), -1.0, 1.0)
+    for kind, qz in quant.items():
+        for dt in dtypes:
+            xe = on(xe_np, dt)
+
+            def export_blocks():
+                st = qz.init_state((CHAIN_CH,), dt, dev)
+                ys = []
+                for b in range(CHAIN_BLOCKS):
+                    st, y = qz.process(st, xe[:, b * CHAIN_BLOCK:(b + 1) * CHAIN_BLOCK])
+                    ys.append(y)
+                return torch.cat(ys, dim=-1)
+
+            path = f"export_{kind}_blocks_{dname(dt)}"
+            y, used = driven(path, export_blocks, {"error_feedback"})
+            assert used == {"error_feedback": CHAIN_BLOCKS}, used
+            x_one = on(xe_np[:CHANNELS, :N_FLAGSHIP], dt)
+            path1 = f"export_{kind}_oneshot_{dname(dt)}"
+            (st1, y1), used1 = driven(path1, lambda: qz.process(
+                qz.init_state((CHANNELS,), dt, dev), x_one), {"error_feedback"})
+            assert used1 == {"error_feedback": 1}, used1
+            _, y2 = qz.process(st1, x_one)
+            checks = []
+            for out, x in ((y, xe), (y1, x_one)):
+                codes = out / qz.bit_div - 0.5
+                # float64 rounds (q + 0.5) * bit_div and back exactly enough
+                # to read the code; float32 to within 1e-2
+                tol = 1e-6 if dt == torch.float64 else 1e-2
+                integral = bool(torch.all(torch.abs(codes - torch.round(codes)) <= tol))
+                in_range = bool(torch.all((codes >= qz.limit_lo - tol)
+                                          & (codes <= qz.limit_hi + tol)))
+                lsb = float(torch.sqrt(torch.mean((out - x).double() ** 2))) * qz.bit_mul
+                checks.append((integral and in_range and bool(torch.all(torch.isfinite(out))), lsb))
+            redraw = not torch.equal(y1, y2)
+            ok = all(c for c, _ in checks) and redraw
+            ms = time_ms(torch, export_blocks, reps=1, warmup=0) / CHAIN_BLOCKS
+            ms1 = time_ms(torch, lambda: qz.process(qz.init_state((CHANNELS,), dt, dev),
+                                                    x_one), reps=3, warmup=1)
+            print(f"voice export {kind} {dname(dt)}: {CHAIN_CH}x{n_chain} in "
+                  f"{CHAIN_BLOCKS} blocks (Q1 {used['error_feedback']} launches) "
+                  f"and one-shot {CHANNELS}x{N_FLAGSHIP} (Q1 1): codes integral, in "
+                  f"range and finite {all(c for c, _ in checks)}, error rms "
+                  f"{checks[0][1]:.2f} / {checks[1][1]:.2f} LSB, a second call "
+                  f"draws new dither {redraw} {'ok' if ok else 'FAILED'}; "
+                  f"{ms:.4f} ms a block (real-time factor {block_ms / ms:.2f}), "
+                  f"one-shot {ms1:.4f} ms ({gpu})")
+            assert ok, (kind, dt)
+
+    # -- one-shot at 8 x 48128: the pitch strip, pitch-spectral and WSOLA ---------------
+    def chain_run(graph):
+        raw_g = json.dumps(graph)
+
+        def run(x):
+            ch = Chain(SR)
+            assert ch.load_graph(raw_g) == []
+            return ch.process(ch.init_state(x.shape[:-1], x.dtype, x.device), x)[1]
+        return run
+
+    def spectral_node(semitones):
+        return {"nodes": [{"id": "p", "type": "pitch-spectral",
+                           "params": {"semitones": semitones}}],
+                "connections": [{"from": "_input", "to": "p"},
+                                {"from": "p", "to": "_output"}]}
+
+    w1_once = {"wsola_search": 1}
+    items = [("pitch_graph", "PITCH_GRAPH (pitch-time +3 -> granular -> "
+              "spectral-freeze)", chain_run(PITCH_GRAPH), w1_once),
+             ("pitch_spectral_down4", "pitch-spectral -4 semitones (stretch and "
+              "resample)", chain_run(spectral_node(-4)), {}),
+             ("pitch_spectral_up1", "pitch-spectral +1 semitone (bin shift)",
+              chain_run(spectral_node(1)), {}),
+             ("wsola_up3", "WSOLA music preset +3", music(3).process, w1_once),
+             ("wsola_down4", "WSOLA music preset -4", music(-4).process, w1_once),
+             ("wsola_up12", "WSOLA music preset +12", music(12).process, w1_once)]
+    for key, label, fn, expect in items:
+        ref = host(fn(torch.as_tensor(x8_np)))
+        cpu32 = snr_db(ref, host(fn(torch.as_tensor(x8_np, dtype=torch.float32))))
+        bars = {torch.float32: min(100.0, cpu32 - 6.0), torch.float64: 200.0}
+        for dt in dtypes:
+            xd = on(x8_np, dt)
+            path = f"oneshot_{key}_{dname(dt)}"
+            out, used = driven(path, lambda: fn(xd), expect)
+            assert used == expect, (label, used)
+            again = bits_equal(torch, out, fn(xd))
+            yh = host(out)
+            assert yh.shape == ref.shape and np.all(np.isfinite(yh))
+            s = snr_db(ref, yh)
+            ok = s >= bars[dt] and again
+            ms = time_ms(torch, lambda: fn(xd), reps=3, warmup=1)
+            print(f"voice oneshot {label} {CHANNELS}x{N_FLAGSHIP} {dname(dt)}: "
+                  f"launches {json.dumps(used)}, vs the CPU path in float64 SNR "
+                  f"{s:.1f} dB (bar >= {bars[dt]:.1f}; the CPU path's float32 "
+                  f"{cpu32:.1f}), two calls bit-equal {again} "
+                  f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms, "
+                  f"{N_FLAGSHIP / SR * 1e3 / ms:.1f}x real time ({gpu})")
+            assert ok, (label, dt)
+
+    # -- W1's and Q1's times beside their bounds ---------------------------------------
+    mhz = dynfb.sm_clock_mhz()
+    add_cycles = w1mod.sum_step_cycles()
+    wargs = w1_args[("music preset +3", torch.float32)]
+    x2, csq, rs, edge, ov, seek, flat, tail0 = wargs
+    grid = (torch.as_tensor(np.asarray(rs, np.int32), device=dev),
+            torch.as_tensor(np.asarray(edge, np.uint8), device=dev))
+    s_count, c_w, n_ext = len(rs), x2.shape[0], x2.shape[1]
+    qargs = q1_args("fir", CHAIN_CH, CHAIN_BLOCK, torch.float32)
+    order = len(qargs[3].coeffs)
+    q_cycles = q1mod.step_cycles(qargs[3])
+    timings = {
+        "wsola_search": (
+            lambda: w1mod.launch(x2, csq, *grid, ov, seek, flat, tail0),
+            lambda: w1mod.wsola_search_plain(*wargs),
+            f"per WSOLA call, music preset +3 semitones, {c_w} x {N_FLAGSHIP} "
+            f"float32 ({s_count} segments, seek {seek}, ov {ov})",
+            4.0 * (2 * c_w * n_ext + 1 + s_count * c_w + 2 * s_count),
+            2.0 * s_count * c_w * seek * ov + 5.0 * s_count * c_w * seek,
+            s_count * ov * add_cycles,
+            f"{s_count} segments x {ov} dependent product-and-sum steps x "
+            f"{add_cycles:.1f} cycles"),
+        "error_feedback": (
+            lambda: q1mod.error_feedback(*qargs),
+            lambda: q1mod.error_feedback_plain(*qargs),
+            f"per export block, {CHAIN_CH} x {CHAIN_BLOCK} float32, FC9 (order "
+            f"{order})",
+            4.0 * (3 * CHAIN_CH * CHAIN_BLOCK + 2 * CHAIN_CH * order),
+            q1_step_ops(order) * CHAIN_CH * CHAIN_BLOCK, CHAIN_BLOCK * q_cycles,
+            f"{CHAIN_BLOCK} steps x {q_cycles:.1f} cycles")}
+    for name, (call, plain_call, at, nbytes, ops, chain_cycles, how) in timings.items():
+        k = kernels[name]
+        k["ms_at"] = at
+        k["ms"] = graph_ms(torch, call, 20)
+        k["call_ms"] = time_ms(torch, call, 20)
+        k["plain_ms"] = time_ms(torch, plain_call, 1, warmup=0)
+        k["bound_ms"], k["bound_by"] = bound(nbytes, float(ops))
+        k["library_ms"] = None
+        k["sm_mhz"] = mhz
+        k["chain_bound_ms"] = {at: chain_cycles / mhz * 1e-3}
+        cb = k["chain_bound_ms"][at]
+        print(f"time {name} {at}: kernel {k['ms']:.4f} ms (graph replay; "
+              f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']}, "
+              f"{100 * k['bound_ms'] / k['ms']:.1f}% of the kernel), chain bound "
+              f"{cb:.6f} ms ({how} / {mhz:.0f} MHz, {100 * cb / k['ms']:.1f}% of "
+              f"the kernel), plain {k['plain_ms']:.4f} ms, library none ({gpu})")
+    for name in names:
+        kernels[name]["launches"] = sum(kernels[name]["by_path"].values())
+    print(f"voice launches by path: "
+          f"{json.dumps({n: {p: v for p, v in kernels[n]['by_path'].items() if v} for n in names})}"
+          f"; phase {time.perf_counter() - t_ph:.2f} s")
+    assert kernels["envelope"]["by_path"]["voice_chain_float32"] == CHAIN_BLOCKS
+    assert kernels["wsola_search"]["by_path"]["oneshot_pitch_graph_float32"] == 1
+    assert kernels["error_feedback"]["by_path"]["export_fir_blocks_float32"] == CHAIN_BLOCKS
 
 
 def main() -> int:
@@ -4375,7 +4913,12 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = sum(k["by_path"].values())
 
-    # -- 13. kernel list ----------------------------------------------------------
+    # -- 13. voice: the last effects and the dither quantizer (W1, Q1) -------------
+    voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan, fdlconv)
+    for name, k in kernels.items():
+        k["launches"] = sum(k["by_path"].values())
+
+    # -- 14. kernel list ----------------------------------------------------------
     line = {"kernels": [{
         "name": name, "route": k["route"], "source": k["source"],
         "replaces": k["replaces"], "launches": k["launches"],

@@ -40,6 +40,12 @@ from tests.conftest import snr_db
 
 SR = 48000.0
 BARS = {"float64": 200.0, "float32": 100.0}
+# Types whose float32 class in the reference is below BARS: held within 6
+# dB of JAX's own float32 reading against its float64. The spectral
+# freeze's overlap-add divides by the squared window's sum, which is
+# ~5e-12 at a frame's first samples, so the irfft's float32 rounding
+# there is multiplied by ~4e5 (JAX float32: 68.6 dB on this input).
+F32_CLASS_TYPES = ("spectral-freeze",)
 
 # The chip smoke run's graph (chip_smoke.py): K3, K5, K4 and one fused
 # FIR of ~24k taps (K1) per block on the card.
@@ -159,11 +165,15 @@ def test_every_registered_type_matches_jax():
         jc, tc, _, _ = _chains(graph)
         # float32 is held to JAX's float64 output (one JAX compile a type)
         _, yj = _run_jax(jc, x, "float64")
+        bars = dict(BARS)
+        if typ in F32_CLASS_TYPES:
+            _, yj32 = _run_jax(jc, x, "float32")
+            bars["float32"] = snr_db(np.asarray(yj), np.asarray(yj32)) - 6.0
         for dtype in ("float64", "float32"):
             _, yt = _run_port(tc, x, dtype)
             assert yt.shape == (2, 512), typ
             assert np.all(np.isfinite(yt.numpy())), typ
-            assert snr_db(np.asarray(yj), yt.numpy()) >= BARS[dtype], (typ, dtype)
+            assert snr_db(np.asarray(yj), yt.numpy()) >= bars[dtype], (typ, dtype)
         _, y1 = _run_port(tc, x[:1], "float32")
         np.testing.assert_allclose(y1.numpy()[0], yt.numpy()[0], atol=2e-5,
                                    err_msg=typ)
@@ -230,15 +240,17 @@ def test_process_blocks_equals_block_by_block():
 
 
 def test_unported_types_raise_keyerror():
+    """No type of the JAX default registry waits for its module; a type
+    neither package knows (near misses of the last ported names among
+    them) raises KeyError in both."""
     ported = set(t_registry().types())
-    assert set(NOT_PORTED) == set(j_registry().types()) - ported
-    for typ in NOT_PORTED:
-        graph = {"nodes": [{"id": "n", "type": typ}], "connections": []}
-        with pytest.raises(KeyError, match=f"{typ}.*not ported yet"):
-            TChain(SR).load_graph(json.dumps(graph))
-    with pytest.raises(KeyError, match="unknown effect type"):
-        TChain(SR).load_graph(json.dumps(
-            {"nodes": [{"id": "n", "type": "does-not-exist"}]}))
+    assert NOT_PORTED == () and ported == set(j_registry().types())
+    for typ in ("does-not-exist", "Vocoder", "pitch_time", "granulars"):
+        graph = json.dumps({"nodes": [{"id": "n", "type": typ}]})
+        with pytest.raises(KeyError, match=f"unknown effect type '{typ}'"):
+            TChain(SR).load_graph(graph)
+        with pytest.raises(KeyError):
+            JChain(SR).load_graph(graph)
 
 
 def test_graph_errors_and_edge_graphs_match_jax():

@@ -3,8 +3,8 @@ the JAX package's on the CPU (the port through its kernels' plain
 versions, JAX through its XLA paths, jitted): the ten node types'
 parameters and defaults, chip_smoke.py's two graphs streamed in the
 chain's blocks, a state carried from JAX to the port mid-stream by
-`convert.state_from_numpy`, the parameter normalizers, and the types
-still waiting for their modules.
+`convert.state_from_numpy`, the parameter normalizers, and that no type
+waits for its module any more.
 
 Tolerances: float64 >= 200 dB; float32 against JAX float64 no more than
 6 dB below JAX float32's own SNR (the reference's float32 class: LFO
@@ -161,10 +161,11 @@ def test_normalizers_match_jax():
 
 
 def test_not_ported_holds_the_5_types_left():
-    assert NOT_PORTED == ("spectral-freeze", "granular", "vocoder", "pitch-time",
-                          "pitch-spectral")
+    """The last five types are ported: nothing waits, and the port's
+    registry has the JAX default registry's type set."""
+    assert NOT_PORTED == ()
     assert set(SLICE_TYPES) <= set(t_registry().types())
-    assert set(NOT_PORTED) == set(j_registry().types()) - set(t_registry().types())
-    for name in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            t_registry().lookup(name)
+    assert set(t_registry().types()) == set(j_registry().types())
+    for name in ("spectral-freeze", "granular", "vocoder", "pitch-time",
+                 "pitch-spectral"):
+        assert t_registry().lookup(name) is not None

@@ -128,9 +128,9 @@ def test_node_parameters_and_defaults_match_jax(name):
 
 
 def test_not_ported_holds_the_15_types_left():
-    # 15 types were left after the delay and reverb nodes; the modulation
-    # and waveshaping nodes have since been ported, 5 are left
-    assert len(NOT_PORTED) == 5
+    # 15 types were left after the delay and reverb nodes; every one has
+    # since been ported, none is left
+    assert len(NOT_PORTED) == 0
     assert not set(SLICE_TYPES) & set(NOT_PORTED)
     assert set(SLICE_TYPES) <= set(t_registry().types())
     assert set(NOT_PORTED) == set(j_registry().types()) - set(t_registry().types())

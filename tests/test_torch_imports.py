@@ -11,7 +11,9 @@
   envelope kernel, the feedback dynamics detector D1, the delay and
   reverb feedback loops R1-R3, the flanger's loop M1 and the affine
   scans M2 and M3) refuse a tensor that requires grad instead of cutting
-  the gradient.
+  the gradient. W1 (the WSOLA search) returns integer starts and runs on
+  detached tensors; Q1 (the quantizer's loop) goes through its Function,
+  whose gradient is the reference's zero: both launch under autograd.
 """
 
 import ast
@@ -28,14 +30,16 @@ from algodsp_tpu_torch import (_build, convert, core, delayline, resample, signa
                                spectrum, window)
 from algodsp_tpu_torch.chain import Chain
 from algodsp_tpu_torch.conv import OverlapAdd, OverlapSave, PartitionedConvolver, conv
-from algodsp_tpu_torch.effects import modulation, waveshape
+from algodsp_tpu_torch.dither import Quantizer
+from algodsp_tpu_torch.effects import modulation, spatial, waveshape
+from algodsp_tpu_torch.effects.vocoder import Vocoder
 from algodsp_tpu_torch.effects.delay_effect import Delay
 from algodsp_tpu_torch.effects.dynamics import Compressor
 from algodsp_tpu_torch.effects.reverb import FDNReverb, Freeverb
 from algodsp_tpu_torch.filters import BiquadChain, bank
 from algodsp_tpu_torch.filters.moog import MoogFilter
 from algodsp_tpu_torch.ops import biquad_cascade as bq, dynfb, envscan, fdlconv, moog
-from algodsp_tpu_torch.ops import feedback, linrec
+from algodsp_tpu_torch.ops import dither, feedback, linrec, wsola
 from algodsp_tpu_torch.pipeline import flagship_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,7 +73,14 @@ def test_import_leaves_jax_out():
             "algodsp_tpu_torch.conv.deconvolve", "algodsp_tpu_torch.interp",
             "algodsp_tpu_torch.delayline",
             "algodsp_tpu_torch.effects.modulation.modulation",
-            "algodsp_tpu_torch.effects.waveshape"} <= set(modules)
+            "algodsp_tpu_torch.effects.waveshape",
+            "algodsp_tpu_torch.effects.spatial", "algodsp_tpu_torch.effects.vocoder",
+            "algodsp_tpu_torch.effects.spectral",
+            "algodsp_tpu_torch.effects.pitch.spectral",
+            "algodsp_tpu_torch.effects.pitch.wsola", "algodsp_tpu_torch.effects.pitch",
+            "algodsp_tpu_torch.dither", "algodsp_tpu_torch.dither.designer",
+            "algodsp_tpu_torch.dither.quantizer", "algodsp_tpu_torch.ops.wsola",
+            "algodsp_tpu_torch.ops.dither"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -148,7 +159,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                    modulation.FrequencyShifter(48000.0), waveshape.Distortion(),
                    waveshape.BitCrusher(48000.0),
                    waveshape.TransformerSimulation(48000.0),
-                   waveshape.HarmonicBass(48000.0))
+                   waveshape.HarmonicBass(48000.0),
+                   spatial.StereoWidener(48000.0), spatial.CrosstalkCanceller(48000.0),
+                   spatial.CrosstalkSimulator(48000.0),
+                   spatial.CrosstalkSimulator(48000.0, hrtf_irs={
+                       k: np.ones(4) for k in ("left_direct", "left_cross",
+                                                "right_direct", "right_cross")}),
+                   Vocoder(48000.0), Quantizer(48000.0),
+                   Quantizer(48000.0, iir_shelf_freq=8000.0))
     ]
     for call in calls + analysis:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -178,6 +196,7 @@ class _FakeCuda:
 
     contiguous = reshape
     to = reshape
+    detach = reshape
 
 
 def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
@@ -199,8 +218,13 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
         monkeypatch.setattr(feedback, name, plain_called)
     for name in ("affine2_scan_plain", "affine_scan_nd_plain"):
         monkeypatch.setattr(linrec, name, plain_called)
+    monkeypatch.setattr(wsola, "wsola_search_plain", plain_called)
+    monkeypatch.setattr(dither, "error_feedback_plain", plain_called)
     sos = np.array([[0.5, 0.2, 0.1, -0.3, 0.1]])
     fb = Compressor(48000.0).core.feedback_params()
+    for lib, call in _walk_calls(_FakeCuda):
+        with pytest.raises(RuntimeError, match=f"no kernel library {lib}"):
+            call()
     for call in _feedback_calls(_FakeCuda):
         with pytest.raises(RuntimeError, match="no kernel library feedback"):
             call()
@@ -227,8 +251,23 @@ def test_kernel_wrappers_raise_instead_of_falling_back(monkeypatch):
                     dynfb.dynamics_feedback, feedback.delay_feedback,
                     feedback.freeverb_feedback, feedback.fdn_feedback,
                     feedback.flanger_feedback, linrec.affine2_scan,
-                    linrec.affine_scan_nd):
+                    linrec.affine_scan_nd, wsola.wsola_search,
+                    dither.error_feedback):
         assert isinstance(wrapper.launches, int)
+
+
+def _walk_calls(make, x_grad=False):
+    """W1's and Q1's wrappers on (fake) CUDA tensors made by make(*shape,
+    ...), with the kernel library each needs; x requires grad where
+    x_grad."""
+    shaper = Quantizer(48000.0).shaper
+    return [
+        ("wsola", lambda: wsola.wsola_search(
+            make(2, 4000, requires_grad=x_grad), make(2, 4001),
+            np.array([0, 600]), np.array([False, False]), 480, 720, 1440, 360)),
+        ("dither", lambda: dither.error_feedback(
+            make(2, 256, requires_grad=x_grad), make(2, 256), make(2, 9),
+            shaper))]
 
 
 def _feedback_calls(make, x_grad=False):
@@ -302,6 +341,11 @@ def test_kernel_wrappers_refuse_grad(monkeypatch):
                  + _affine_calls(_FakeCuda, x_grad=True)):
         with pytest.raises(NotImplementedError, match="no backward on the card"):
             call()
+    # W1 (integer starts, detached inputs) and Q1 (a Function whose
+    # gradient is zero) go on to their launches under autograd
+    for lib, call in _walk_calls(_FakeCuda, x_grad=True):
+        with pytest.raises(RuntimeError, match=f"no kernel library {lib}"):
+            call()
     with torch.no_grad():
         with pytest.raises(RuntimeError, match="no kernel library dynamics"):
             dynfb.dynamics_feedback(g(2, 256), _FakeCuda(2), _FakeCuda(2), fb)
@@ -357,7 +401,8 @@ def test_wrappers_refuse_other_devices():
                                 torch.empty(2, device="meta"),
                                 Compressor(48000.0).core.feedback_params())
     on_meta = lambda *shape, requires_grad=False: torch.empty(shape, device="meta")
-    for call in _feedback_calls(on_meta) + _affine_calls(on_meta):
+    for call in (_feedback_calls(on_meta) + _affine_calls(on_meta)
+                 + [c for _, c in _walk_calls(on_meta)]):
         with pytest.raises(ValueError):
             call()
 
