@@ -210,10 +210,14 @@ class Chain:
             y = torch.zeros_like(x)
         return new_state, y
 
-    def process_blocks(self, state, x, *, block_size: int | None = None):
+    def process_blocks(self, state, x, *, block_size: int | None = None,
+                       unroll: int = 1):
         """Stream the whole graph over many latency blocks: `process`
         block by block with every node's state carried
         (`streaming.scan_blocks`). x: (..., N) with N a multiple of the
-        block size (the chain's own unless given)."""
+        block size (the chain's own unless given). `unroll` is accepted
+        for the reference's signature and ignored: it tunes the
+        unrolling of the reference's `lax.scan` over blocks, and the
+        port calls `process` block by block with nothing to unroll."""
         bs = self.ctx.block_size if block_size is None else block_size
         return scan_blocks(self.process, state, x, block_size=bs)

@@ -116,13 +116,16 @@ def downward_expansion_gain(level, threshold_log2, knee_db, knee_width_log2,
     return torch.where(level > 0, gain, torch.full_like(level, range_lin))
 
 
-def dynamics_env_scan(src, env0, attack_coeff, release_coeff):
+def dynamics_env_scan(src, env0, attack_coeff, release_coeff, *,
+                      unroll: int = 8):
     """The core envelope recurrence (`core.go:339-359`):
     rising: env += (src-env)*attack ; falling: env = src + (env-src)*release.
 
     The falling branch rewrites to env += (src-env)*(1-release), so it
     runs through the envelope kernel with release' = 1 - release —
-    exactly the same recurrence.
+    exactly the same recurrence. `unroll` is accepted for the
+    reference's signature and ignored: it tunes the unrolling of the
+    reference's `lax.scan`, and the envelope kernel has no unroll to tune.
     """
     return envelope_scan(src, env0, attack_coeff, 1.0 - release_coeff)
 

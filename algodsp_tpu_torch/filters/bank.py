@@ -409,8 +409,10 @@ class MultirateOctaveAnalyzer:
         return (tuple(new_states),
                 torch.cat(peaks, dim=-1)[..., self._perm_on[x.device]])
 
-    def analyze(self, x):
-        """One-shot: zero state, returns peaks only."""
+    def analyze(self, x, dtype=None):
+        """One-shot: zero state, returns peaks only. `dtype` is accepted
+        for the reference's signature and ignored, as the reference
+        ignores it: the peaks come in x's type."""
         _, peaks = self.process(
             self.init_state(x.shape[:-1], x.dtype, x.device), x)
         return peaks

@@ -274,7 +274,8 @@ def _apply_banded(xb, sos, block, s0, return_state, gain):
 
 
 def cascade_apply_blocked(x, sos, *, block: int = 128, s0=None,
-                          return_state: bool = False, gain: float = 1.0):
+                          return_state: bool = False, gain: float = 1.0,
+                          precision=None):
     """Run an entire SOS cascade over x in blocked form.
 
     x: (..., N) with N a multiple of `block`; s0: optional (..., d)
@@ -282,7 +283,9 @@ def cascade_apply_blocked(x, sos, *, block: int = 128, s0=None,
     input gain, folded into the weights. Returns y or (y, s_final), in
     x's type and on its device; every product runs in full float32
     under `full_float32()` (float64 stays float64). The banded engine
-    with one band.
+    with one band. `precision` is accepted for the reference's signature
+    and ignored, whatever its value: full float32 is the reference's
+    `HIGHEST`, and the port always pins it.
     """
     sos = np.ascontiguousarray(np.asarray(sos, dtype=np.float64))
     if sos.ndim != 2 or sos.shape[1] != 5:
@@ -296,7 +299,8 @@ def cascade_apply_blocked(x, sos, *, block: int = 128, s0=None,
 
 
 def cascade_apply_blocked_banded(xb, sos, *, block: int = 128, s0=None,
-                                 return_state: bool = False):
+                                 return_state: bool = False,
+                                 precision=None):
     """Banded whole-cascade engine: band row b runs its own cascade.
 
     xb: (..., bands, N) with N a multiple of `block`; sos: (bands, S, 5);
@@ -305,7 +309,9 @@ def cascade_apply_blocked_banded(xb, sos, *, block: int = 128, s0=None,
     batch replaces S sequential banded stages (filter banks, vocoder)
     by a single Toeplitz pass per block. Returns y or (y, s_final) in
     xb's type on its device; the products run in full float32 under
-    `full_float32()`.
+    `full_float32()`. `precision` is accepted for the reference's
+    signature and ignored, whatever its value: full float32 is the
+    reference's `HIGHEST`, and the port always pins it.
     """
     sos = np.ascontiguousarray(np.asarray(sos, dtype=np.float64))
     if sos.ndim != 3 or sos.shape[2] != 5:

@@ -299,7 +299,7 @@ class EnvelopeFn(torch.autograd.Function):
                                 g_final.contiguous())
 
 
-def envelope_scan(targets, env0, attack, release):
+def envelope_scan(targets, env0, attack, release, *, unroll: int = 8):
     """Run the branching one-pole envelope along the last axis.
 
     targets: (..., T); env0: (...,); attack, release: scalars or arrays
@@ -312,7 +312,9 @@ def envelope_scan(targets, env0, attack, release):
     CUDA tensors run the kernels
     (float32 or float64), CPU tensors their plain versions. T = 0
     returns env0 and an empty trajectory without a launch, still
-    differentiable in env0."""
+    differentiable in env0. `unroll` is accepted for the reference's
+    signature and ignored: it tunes the unrolling of the reference's
+    `lax.scan`, and the port's kernel has no unroll to tune."""
     dtype, device = targets.dtype, targets.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"envelope_scan: unsupported device {device}")

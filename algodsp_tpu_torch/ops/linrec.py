@@ -36,7 +36,8 @@ products' batch.
 `affine2_scan` and `affine_scan_nd` solve time-varying affine
 recurrences s_n = A_n s_{n-1} + w_n whose coefficients are known up
 front (the modulation effects): on the card the CUDA kernels M3 and M2
-(`csrc/affine.cu`, one walk in order a channel), on the CPU their plain
+(`csrc/affine.cu`, chunked scans over time planned by `m3_plan` and
+`m2_plan`), on the CPU their plain
 versions, the reference's log-depth composition written as
 Hillis-Steele doubling.
 
@@ -355,13 +356,16 @@ def _affine_scan(G, w):
     return c
 
 
-def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2):
+def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2,
+                      *, precision=None):
     """Apply one AR section to the (already FIR-filtered) drive f.
 
     f: (..., N) with N a multiple of kernels.block.
     y1, y2: (...,) initial conditions y_{-1}, y_{-2}.
     Returns y: (..., N). Its products run in full float32
-    (`full_float32()`).
+    (`full_float32()`). `precision` is accepted for the reference's
+    signature and ignored, whatever its value: full float32 is the
+    reference's `HIGHEST`, and the port always pins it.
     """
     b = kernels.block
     n = f.shape[-1]
@@ -390,7 +394,8 @@ def ar2_apply_blocked(f, kernels: AR2Kernels, section: int, y1, y2):
     return y.reshape(f.shape[:-1] + (n,))
 
 
-def ar2_apply_blocked_banded(f, kernels: AR2Kernels, y1, y2):
+def ar2_apply_blocked_banded(f, kernels: AR2Kernels, y1, y2,
+                             *, precision=None):
     """Banded variant: apply section b of `kernels` to band row b.
 
     f: (..., B, N) with B == number of sections in `kernels` and N a
@@ -398,7 +403,9 @@ def ar2_apply_blocked_banded(f, kernels: AR2Kernels, y1, y2):
     Returns y: (..., B, N). Parallel filter banks (octave bank, vocoder)
     run a different biquad in every band over the same timeline: one
     batched product with the band axis as the batch. Its products run
-    in full float32 (`full_float32()`).
+    in full float32 (`full_float32()`). `precision` is accepted for the
+    reference's signature and ignored, whatever its value: full float32
+    is the reference's `HIGHEST`, and the port always pins it.
     """
     b = kernels.block
     nbands = kernels.L.shape[0]
@@ -446,10 +453,12 @@ def _affine_scan_banded(G, w):
     return c
 
 
-def ar2_apply_scan(f, a1, a2, y1, y2):
+def ar2_apply_scan(f, a1, a2, y1, y2, *, unroll: int = 8):
     """Sequential evaluation of the same AR recurrence, one sample at a
     time: the cross-check of the blocked engine and the `mode="scan"`
-    path for short signals."""
+    path for short signals. `unroll` is accepted for the reference's
+    signature and ignored: it tunes the unrolling of the reference's
+    `lax.scan`, and this Python loop has nothing to unroll."""
     a1 = float(a1)
     a2 = float(a2)
     ym1 = torch.as_tensor(y1, dtype=f.dtype, device=f.device)
@@ -516,13 +525,113 @@ def run_sections(x, sos, state, *, mode: str = "blocked",
 # ---------------------------------------------------------------------------
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-# affine_scan_nd_f{32,64}(A, w, s0, after, fin, C, N, d, stream)
-_ND_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                                    ctypes.c_int, ctypes.c_void_p]
-# affine2_scan_f{32,64}(A, w, s0, entry, fin, C, N, stream)
-_TWO_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_void_p]
-MAX_ND = 32          # M2 holds row i of A_n on lane i of a warp
+# affine_scan_nd_f{32,64}(A, w, s0, after, fin, C, N, d, G, K, L, threads,
+# B, stream)
+_ND_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [
+    ctypes.c_int] * 6 + [ctypes.c_void_p]
+# affine2_scan_f{32,64}(A, w, s0, entry, fin, C, N, L, threads, B, stream)
+_TWO_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p]
+MAX_ND = 32          # M2's composites hold column j of a product on lane j
+
+# The chunked scans' schedule (csrc/affine.cu), the one place it is set:
+# the wrappers launch the kernels with these plans, and the CPU models of
+# the kernels (tests/test_torch_modulation_walks.py) follow them.
+M3_CHUNK = 15        # steps a chunk (a thread); odd, for conflict-free banks
+M2_CHUNK = 5         # steps a chunk (a thread a channel); odd, likewise
+M3_MAX_THREADS = 512
+M2_MAX_THREADS = 256
+M2_MAX_GROUP = 8     # channels a block of M2
+MAX_CLUSTER = 8      # blocks of a channel along time (a portable cluster)
+SMEM_BYTES = 225280  # the kernels' opt-in dynamic shared memory
+H100_SMS = 132
+
+
+def _round_vec(n: int, itemsize: int) -> int:
+    v = 16 // itemsize
+    return -(-n // v) * v
+
+
+def _region(n: int, itemsize: int) -> int:
+    """Elements of a staging region for n elements: whole 16-byte pieces
+    and 16 bytes of slack (`region_len` in csrc/affine.cu)."""
+    return _round_vec(n, itemsize) + 16 // itemsize
+
+
+def m3_smem_bytes(threads: int, itemsize: int, L: int) -> int:
+    """M3's dynamic shared memory for chunks of L steps: the tile's A
+    and w."""
+    tile = threads * L
+    return (_region(4 * tile, itemsize) + _region(2 * tile, itemsize)) * itemsize
+
+
+def m3_plan(n: int, C: int, itemsize: int, sms: int = H100_SMS):
+    """M3's schedule for C channels of n steps: (L, threads, B, tile).
+
+    A thread takes a chunk of L = M3_CHUNK steps, a block a tile of
+    threads x L steps a pass. Where the channels leave SMs free, a
+    channel's time is cut over a cluster of B <= 8 blocks (an SM each at
+    most, and at least 64 chunks a block); the threads cover the block's
+    share of the chunks, up to what the shared memory holds."""
+    L = M3_CHUNK
+    chunks = -(-n // L)
+    B = max(1, min(MAX_CLUSTER, sms // C, chunks // 64))
+    cap = M3_MAX_THREADS
+    while m3_smem_bytes(cap, itemsize, L) > SMEM_BYTES:
+        cap -= 32
+    threads = min(cap, -(-chunks // (B * 32)) * 32)
+    return L, threads, B, threads * L
+
+
+def m2_smem_bytes(d: int, G: int, K: int, B: int, itemsize: int,
+                  L: int) -> int:
+    """M2's dynamic shared memory (`nd_layout` in csrc/affine.cu): A's
+    tile, G channels' w tiles, K composites, K + 1 prefix products, the
+    chunk entries, two states a channel, the tile's map twice and, in a
+    cluster, the B ranks' maps."""
+    tile, dd = K * L, d * d
+
+    def rv(n):
+        return _round_vec(n, itemsize)
+    sl = rv(dd + G * d)
+    total = (_region(tile * dd, itemsize) + G * _region(tile * d, itemsize)
+             + rv(K * dd) + rv((K + 1) * dd) + rv(G * K * d) + 2 * rv(G * d)
+             + 2 * sl + (B * sl if B > 1 else 0))
+    return total * itemsize
+
+
+def m2_plan(n: int, C: int, d: int, itemsize: int, sms: int = H100_SMS):
+    """M2's schedule for C channels of n steps of a d-state:
+    (G, K, L, threads, B).
+
+    A block takes G <= 8 channels and a tile of K chunks of L = M2_CHUNK
+    steps a pass, a thread a (channel, chunk) pair. Where the channel
+    groups leave SMs free, time is cut over a cluster of B <= 8 blocks (at
+    least 4 chunks a block); K covers the block's share of the chunks, up
+    to 256 threads and what the shared memory holds (for a large d, G and
+    then B give way)."""
+    L = M2_CHUNK
+    g0 = min(C, M2_MAX_GROUP)
+    chunks = -(-n // L)
+    B = max(1, min(MAX_CLUSTER, sms // -(-C // g0), chunks // 4))
+    while True:
+        for G in range(g0, 0, -1):
+            for K in range(min(M2_MAX_THREADS // G, -(-chunks // B)), 0, -1):
+                if m2_smem_bytes(d, G, K, B, itemsize, L) <= SMEM_BYTES:
+                    return G, K, L, -(-(G * K) // 32) * 32, B
+        if B == 1:
+            raise ValueError(f"affine_scan_nd: d = {d} does not fit")
+        B //= 2
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(t):
+    """t, or a copy of it that starts on 16 bytes (M3's vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _mat2(a_r, a_l):
@@ -612,9 +721,10 @@ def affine2_scan(A, w, s0):
     (entry, final): entry[..., n, :] is the state BEFORE step n
     (entry[..., 0, :] == s0), final the state after step N-1.
 
-    The kernel M3 for CUDA tensors (a gradient wanted there raises), the
-    plain version for CPU tensors. `launches` counts the kernel's
-    launches; N = 0 launches nothing."""
+    The kernel M3 for CUDA tensors (a chunked scan over time, scheduled
+    by `m3_plan`; a gradient wanted there raises), the plain version for
+    CPU tensors. `launches` counts the kernel's launches; N = 0 launches
+    nothing."""
     if A.device.type == "cpu":
         return affine2_scan_plain(A, w, s0)
     if A.device.type != "cuda":
@@ -631,11 +741,15 @@ def affine2_scan(A, w, s0):
     flat = lambda t, tail: torch.broadcast_to(t, lead + tail).reshape(
         (-1,) + tail).contiguous()
     A2, w2, s2 = flat(A, (n, 4)), flat(w, (n, 2)), flat(s0, (2,))
+    A2, w2 = _aligned(A2), _aligned(w2)
     entry = torch.empty_like(w2)
     fin = torch.empty_like(s2)
+    C = A2.shape[0]
+    L, threads, B, _ = m3_plan(n, C, A.element_size(),
+                               _sm_count(A.device.index or 0))
     with torch.cuda.device(A.device):
         code = fn(*(_build.ptr(t) for t in (A2, w2, s2, entry, fin)),
-                  A2.shape[0], n, _build.stream_of(A))
+                  C, n, L, threads, B, _build.stream_of(A))
         affine2_scan.launches += 1
     _build.check("affine", code, "affine2_scan")
     return entry.reshape(lead + (n, 2)), fin.reshape(lead + (2,))
@@ -652,8 +766,9 @@ def affine_scan_nd(A, w, s0):
     coefficients); w: (..., N, d) per-step offsets; s0: (..., d). Returns
     (after, final): after[..., n, :] is the state AFTER step n.
 
-    The kernel M2 for CUDA tensors (d <= 32; a gradient wanted there
-    raises), the plain version for CPU tensors. `launches` counts the
+    The kernel M2 for CUDA tensors (d <= 32; a chunked scan over time,
+    scheduled by `m2_plan`; a gradient wanted there raises), the plain
+    version for CPU tensors. `launches` counts the
     kernel's launches; N = 0 launches nothing."""
     if A.device.type == "cpu":
         return affine_scan_nd_plain(A, w, s0)
@@ -675,9 +790,12 @@ def affine_scan_nd(A, w, s0):
     A2 = A.contiguous()
     after = torch.empty_like(w2)
     fin = torch.empty_like(s2)
+    C = w2.shape[0]
+    G, K, L, threads, B = m2_plan(n, C, d, A.element_size(),
+                                  _sm_count(A.device.index or 0))
     with torch.cuda.device(A.device):
         code = fn(*(_build.ptr(t) for t in (A2, w2, s2, after, fin)),
-                  w2.shape[0], n, d, _build.stream_of(A))
+                  C, n, d, G, K, L, threads, B, _build.stream_of(A))
         affine_scan_nd.launches += 1
     _build.check("affine", code, "affine_scan_nd")
     return after.reshape(lead + (n, d)), fin.reshape(lead + (d,))
@@ -691,17 +809,29 @@ _LAT_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p]
 
 
+# the latency probes' kinds (csrc/affine.cu::latency)
+STEP_WALK_ND = 2     # a walk in order's step of M2: one warp, d shuffles
+STEP_WALK_2 = 3      # M3's walk step: one thread, 2 x 2 in registers
+STEP_LOCAL_2 = 4     # M3's local step: the chunk map composed with a step
+SCAN_LEVEL_2 = 5     # a level of M3's shuffle scan
+STEP_ND = 6          # M2's chunked step: a thread's d-vector, A in shared memory
+
+
 def scan_step_cycles(d: int, dtype=torch.float32, n: int = 1 << 16,
-                     device="cuda") -> float:
-    """SM cycles of one dependent step of M2 (d-dimensional; one warp,
-    the matrix row in registers) or, for d = 2, of M3 (one thread),
-    clock64 stamps around n steps: with the SM clock, the chain bound of
-    an N-step walk is N times this."""
+                     device="cuda", kind: int | None = None) -> float:
+    """SM cycles of one dependent step, clock64 stamps around n steps.
+    By default the walk in order's step (M2's for d > 2, one warp with the
+    matrix row in registers; M3's for d = 2, one thread): with the SM
+    clock, the chain bound of an N-step walk is N times this. `kind`
+    picks another probe (`STEP_LOCAL_2`, `SCAN_LEVEL_2`, `STEP_ND`), the
+    pieces of the chunked scans' critical paths."""
+    if kind is None:
+        kind = STEP_WALK_2 if d == 2 else STEP_WALK_ND
     fn = _build.entry("affine", f"affine_latency_{_SUFFIX[dtype]}", _LAT_ARGS)
     cycles = torch.zeros(1, dtype=torch.int64, device=device)
-    sink = torch.zeros(32, dtype=dtype, device=device)
+    sink = torch.full((32,), 0.25, dtype=dtype, device=device)
     for _ in range(2):      # the first run warms the instruction cache
-        code = fn(3 if d == 2 else 2, n, d, _build.ptr(cycles), _build.ptr(sink),
+        code = fn(kind, n, d, _build.ptr(cycles), _build.ptr(sink),
                   _build.stream_of(cycles))
         _build.check("affine", code, "affine_latency")
         torch.cuda.synchronize(cycles.device)

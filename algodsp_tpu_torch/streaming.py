@@ -45,7 +45,8 @@ def _merge_tree(outs):
     return torch.cat(outs, dim=-1)
 
 
-def scan_blocks(process_fn, state, *signals, block_size: int):
+def scan_blocks(process_fn, state, *signals, block_size: int,
+                unroll: int = 1):
     """Stream `process_fn` over consecutive blocks.
 
     Args:
@@ -56,6 +57,9 @@ def scan_blocks(process_fn, state, *signals, block_size: int):
       *signals: one or more (..., N) inputs, cut along the last axis into
         N // block_size blocks each (all must share N).
       block_size: the latency block length.
+      unroll: accepted for the reference's signature and ignored: it
+        tunes the unrolling of the reference's `lax.scan`, and this
+        loop calls `process_fn` block by block with nothing to unroll.
 
     Returns:
       (final_state, outputs), every output reassembled to

@@ -1722,14 +1722,17 @@ def modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> N
         """The kernel and the plain version on the same inputs on the card,
         and the plain version in float64 of the same inputs: float64 >=
         200 dB; float32 >= 100 dB or no more than 6 dB under the plain
-        version's own float32 reading against float64 (the kernel walks in
-        order, the plain version composes by doubling)."""
+        version's own float32 reading against float64 (the kernel scans
+        chunks over time, the plain version composes by doubling); a
+        second call bit-equal to the first."""
         kern = getattr(linrec, name)
         plain_fn = getattr(linrec, f"{name}_plain")
         out_k = kern(*args)
+        out_k2 = kern(*args)
         out_p = plain_fn(*args)
         ref = plain_fn(*(a.double() for a in args))
         torch.cuda.synchronize()
+        again = all(bits_equal(torch, a, b) for a, b in zip(out_k, out_k2))
         cat = lambda o: np.concatenate([host(t).ravel() for t in o])
         got, want, r64 = cat(out_k), cat(out_p), cat(ref)
         s_kp = snr_db(want, got)
@@ -1742,14 +1745,41 @@ def modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> N
         k64 = snr_db(r64, got)
         err = float(np.max(np.abs(got - want)))
         kernels[name]["errs"].append(err)
-        ok = s_kp >= bar
+        ok = s_kp >= bar and again
         extra = ("" if cls is None else
                  f"; against float64: the kernel {k64:.1f} dB, the plain "
                  f"version {cls:.1f} dB")
-        print(f"modulation check {name} {dname(dt)} {label}: vs plain on the "
-              f"card SNR {s_kp:.1f} dB (bar >= {bar:.1f}){extra}, max|err| "
-              f"{err:.3e} {'ok' if ok else 'FAILED'}")
+        print(f"modulation check {name} {dname(dt)} {label} (plan "
+              f"{scan_plan(name, args)}): vs plain on the card SNR {s_kp:.1f} "
+              f"dB (bar >= {bar:.1f}){extra}, max|err| {err:.3e}, second call "
+              f"bit-equal {again} {'ok' if ok else 'FAILED'}")
         assert ok, (name, label)
+
+    def scan_plan(name, args):
+        """The kernel's schedule for these arguments, as its wrapper plans
+        it on this card."""
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if name == "affine2_scan":
+            lead = torch.broadcast_shapes(args[0].shape[:-2], args[1].shape[:-2],
+                                          args[2].shape[:-1])
+            L, threads, B, tile = linrec.m3_plan(args[0].shape[-2], lead.numel(),
+                                                 args[0].element_size(), sms)
+            return (f"L {L}, {threads} threads, cluster {B}, "
+                    f"{lead.numel() * B} blocks, tile {tile}")
+        lead = torch.broadcast_shapes(args[1].shape[:-2], args[2].shape[:-1])
+        G, K, L, threads, B = linrec.m2_plan(args[0].shape[0], lead.numel(),
+                                             args[0].shape[-1],
+                                             args[0].element_size(), sms)
+        return (f"d {args[0].shape[-1]}, G {G}, K {K}, L {L}, {threads} threads, "
+                f"cluster {B}, {-(-lead.numel() // G) * B} blocks")
+
+    def synth_nd_args(c, n, d, dt):
+        """M2's arguments without the Phaser (whose d is 2..13): per-step
+        matrices of a decaying random walk (entries of deviation 0.9 /
+        sqrt(d), shared by the channels), offsets and states from the
+        seed."""
+        a = noise(n, d, d, scale=0.9 / math.sqrt(d))
+        return [on(a, dt), on(noise(c, n, d), dt), on(noise(c, d), dt)]
 
     def phaser_args(c, n, stages, dt):
         ph = modfx.Phaser(SR, stages=stages, rate_hz=0.4, feedback=0.2, mix=0.5)
@@ -1780,6 +1810,16 @@ def modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> N
         scan_check("affine2_scan", f"{CHAIN_CH}x{CHAIN_BLOCK}",
                    autowah_args(CHAIN_CH, CHAIN_BLOCK, dt))
         scan_check("affine2_scan", "C=65 N=333", autowah_args(65, 333, dt))
+        # ragged lengths: one step, a chunk and one either side
+        for n in (1, linrec.M2_CHUNK - 1, linrec.M2_CHUNK + 1):
+            scan_check("affine_scan_nd", f"C=65 N={n} steps, 6 stages (d = 7)",
+                       phaser_args(65, n + 1, 6, dt))
+        for n in (1, linrec.M3_CHUNK - 1, linrec.M3_CHUNK + 1):
+            scan_check("affine2_scan", f"C=65 N={n}", autowah_args(65, n, dt))
+        for d in (1, 32):
+            scan_check("affine_scan_nd", f"C=65 N=333 steps, d = {d} (random "
+                       "decaying matrices)", synth_nd_args(65, 333, d, dt))
+        scan_check("affine2_scan", "128x2^16", autowah_args(128, 1 << 16, dt))
 
     # -- the two graphs: 64 ch x 94 blocks of 512 -------------------------------
     n_chain = CHAIN_BLOCKS * CHAIN_BLOCK
@@ -1915,55 +1955,139 @@ def modulation_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan) -> N
     buf = on(noise(c, fl.buf_len, scale=0.3), torch.float32)
     w0 = torch.zeros((), dtype=torch.int32, device=dev)
     d = fl.lags(torch.tensor(0.0, device=dev), n, x32)
-    nd_args = phaser_args(c, n, 6, torch.float32)
-    two_args = autowah_args(CHANNELS, N_FLAGSHIP, torch.float32)
     lag = int(math.floor(fl.base_delay * SR))
     chunk_cycles = feedback.ring_chunk_cycles(fl.buf_len, lag)
-    nd_cycles = linrec.scan_step_cycles(7)
-    two_cycles = linrec.scan_step_cycles(2)
-    dnd = nd_args[0].shape[-1]
-    nn = nd_args[0].shape[0]
-    timings = {
-        "flanger_feedback": (
-            lambda: feedback.flanger_feedback(fl, buf, w0, x32, d),
-            lambda: feedback.flanger_feedback_plain(fl, buf, w0, x32, d),
-            f"per mod-chain block, {c} x {n} float32 (the graph's flanger)",
-            4.0 * (2 * c * n + n + 2 * c * fl.buf_len), M1_SAMPLE_OPS * c * n,
-            -(-n // 32) * chunk_cycles,
-            f"{-(-n // 32)} chunks x {chunk_cycles:.1f} cycles (one warp's "
-            f"dependent ring load and store a chunk, lag {lag})"),
-        "affine_scan_nd": (
-            lambda: linrec.affine_scan_nd(*nd_args),
-            lambda: linrec.affine_scan_nd_plain(*nd_args),
-            f"per mod-chain block, {c} x {nn} steps, d = {dnd}, float32 (the "
-            f"graph's phaser)",
-            4.0 * (nn * dnd * dnd + 2 * c * nn * dnd + 2 * c * dnd),
-            2 * dnd * dnd * c * nn, nn * nd_cycles,
-            f"{nn} steps x {nd_cycles:.1f} cycles"),
-        "affine2_scan": (
-            lambda: linrec.affine2_scan(*two_args),
-            lambda: linrec.affine2_scan_plain(*two_args),
-            f"per AutoWah call, {CHANNELS} x {N_FLAGSHIP} float32",
-            4.0 * (8 * CHANNELS * N_FLAGSHIP + 4 * CHANNELS),
-            M3_STEP_OPS * CHANNELS * N_FLAGSHIP, N_FLAGSHIP * two_cycles,
-            f"{N_FLAGSHIP} steps x {two_cycles:.1f} cycles")}
-    for name, (call, plain_call, at, nbytes, ops, chain_cycles, how) in timings.items():
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def m3_path(args):
+        """M3's critical path in cycles and how it is formed: a pass takes
+        a chunk's local pass and walk (L steps each), the scan's levels
+        (five over the lanes, log2 of the warps over the warps), the
+        cluster's fold and the two applications that give a chunk its
+        entering state (B + 2 walk steps); the passes run in turn. The
+        pieces are the latency probes' cycles in float64 (the kernel's
+        maps and walk run in double)."""
+        c3, n3 = args[0].shape[0], args[0].shape[-2]
+        L, threads, B, tile = linrec.m3_plan(n3, c3, args[0].element_size(), sms)
+        passes = -(-n3 // (B * tile))
+        levels = 5 + max(0, math.ceil(math.log2(threads // 32)))
+        loc = linrec.scan_step_cycles(2, torch.float64, kind=linrec.STEP_LOCAL_2)
+        walk = linrec.scan_step_cycles(2, torch.float64)
+        lev = linrec.scan_step_cycles(2, torch.float64, kind=linrec.SCAN_LEVEL_2)
+        cyc = passes * (L * (loc + walk) + levels * lev + (B + 2) * walk)
+        return cyc, (f"{passes} pass(es) x ({L} steps x ({loc:.1f} + {walk:.1f}) "
+                     f"cycles + {levels} levels x {lev:.1f} + {B + 2} x {walk:.1f})")
+
+    def m2_path(args):
+        """M2's critical path in cycles: a pass takes a chunk's composite,
+        its zero-state pass and its walk (L steps each), the carry over
+        the K chunks, the cluster's fold over B ranks and a chunk's
+        entering state (one step): (3 L + K + B + 1) steps of one thread's
+        d-vector (the STEP_ND probe); the passes run in turn."""
+        n2, d2 = args[0].shape[0], args[0].shape[-1]
+        c2 = args[1].shape[0]
+        G, K, L, threads, B = linrec.m2_plan(n2, c2, d2, args[0].element_size(),
+                                             sms)
+        passes = -(-n2 // (B * K * L))
+        st = linrec.scan_step_cycles(d2, args[0].dtype, kind=linrec.STEP_ND)
+        steps = 3 * L + K + B + 1
+        return passes * steps * st, (f"{passes} pass(es) x {steps} steps x "
+                                     f"{st:.1f} cycles")
+
+    def nd_work(args):
+        """M2's bytes (A once, w and s0 read, after and fin written) and
+        operations (a d x d product and the offset a step a channel)."""
+        n2, d2 = args[0].shape[0], args[0].shape[-1]
+        c2 = args[1].shape[0]
+        item = args[0].element_size()
+        return (item * (n2 * d2 * d2 + 2 * c2 * n2 * d2 + 2 * c2 * d2),
+                2 * d2 * d2 * c2 * n2)
+
+    def two_work(args):
+        c3, n3 = args[0].shape[0], args[0].shape[-2]
+        item = args[0].element_size()
+        return item * (8 * c3 * n3 + 4 * c3), M3_STEP_OPS * c3 * n3
+
+    def walk_bound(name, args):
+        """The walk in order's chain bound (the earlier design's), for
+        comparison: N steps of the walk's dependent step in the type."""
+        if name == "affine2_scan":
+            n3 = args[0].shape[-2]
+            cyc = linrec.scan_step_cycles(2, args[0].dtype)
+        else:
+            n3 = args[0].shape[0]
+            cyc = linrec.scan_step_cycles(args[0].shape[-1], args[0].dtype)
+        return n3 * cyc, f"{n3} steps x {cyc:.1f} cycles"
+
+    nd_args = phaser_args(c, n, 6, torch.float32)
+    two_args = autowah_args(CHANNELS, N_FLAGSHIP, torch.float32)
+    fl_call = lambda: feedback.flanger_feedback(fl, buf, w0, x32, d)
+    fl_plain = lambda: feedback.flanger_feedback_plain(fl, buf, w0, x32, d)
+    k = kernels["flanger_feedback"]
+    at = f"per mod-chain block, {c} x {n} float32 (the graph's flanger)"
+    k["ms_at"] = at
+    k["ms"] = graph_ms(torch, fl_call, 20)
+    k["call_ms"] = time_ms(torch, fl_call, 20)
+    k["plain_ms"] = time_ms(torch, fl_plain, 1, warmup=0)
+    k["bound_ms"], k["bound_by"] = bound(
+        4.0 * (2 * c * n + n + 2 * c * fl.buf_len), float(M1_SAMPLE_OPS * c * n))
+    k["library_ms"] = None
+    k["sm_mhz"] = mhz
+    cyc = -(-n // 32) * chunk_cycles
+    k["chain_bound_ms"] = {at: cyc / mhz * 1e-3}
+    cb = k["chain_bound_ms"][at]
+    print(f"time flanger_feedback {at}: kernel {k['ms']:.4f} ms (graph replay; "
+          f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
+          f"{k['bound_ms']:.6f} ms ({k['bound_by']}, "
+          f"{100 * k['bound_ms'] / k['ms']:.1f}% of the kernel), chain bound "
+          f"{cb:.6f} ms ({-(-n // 32)} chunks x {chunk_cycles:.1f} cycles (one "
+          f"warp's dependent ring load and store a chunk, lag {lag}) / {mhz:.0f} "
+          f"MHz, {100 * cb / k['ms']:.1f}% of the kernel), plain "
+          f"{k['plain_ms']:.4f} ms, library none ({gpu})")
+    # M2 and M3: the main path's shape first (its numbers go to the kernels
+    # line), then float64, M3 at the chain's width and M2 at d = 13
+    scan_times = [
+        ("affine_scan_nd", f"per mod-chain block, {c} x {n - 1} steps, d = 7, "
+         f"float32 (the graph's phaser)", nd_args),
+        ("affine2_scan", f"per AutoWah call, {CHANNELS} x {N_FLAGSHIP} float32",
+         two_args),
+        ("affine_scan_nd", f"per mod-chain block, {c} x {n - 1} steps, d = 7, "
+         "float64", phaser_args(c, n, 6, torch.float64)),
+        ("affine_scan_nd", f"{c} x {n - 1} steps, d = 13 (12 stages), float32",
+         phaser_args(c, n, 12, torch.float32)),
+        ("affine2_scan", f"per AutoWah call, {CHANNELS} x {N_FLAGSHIP} float64",
+         autowah_args(CHANNELS, N_FLAGSHIP, torch.float64)),
+        ("affine2_scan", f"{c} x {n} float32", autowah_args(c, n, torch.float32))]
+    for name, at, args in scan_times:
         k = kernels[name]
-        k["ms_at"] = at
-        k["ms"] = graph_ms(torch, call, 20)
-        k["call_ms"] = time_ms(torch, call, 20)
-        k["plain_ms"] = time_ms(torch, plain_call, 1, warmup=0)
-        k["bound_ms"], k["bound_by"] = bound(nbytes, float(ops))
-        k["library_ms"] = None
-        k["sm_mhz"] = mhz
-        k["chain_bound_ms"] = {at: chain_cycles / mhz * 1e-3}
-        cb = k["chain_bound_ms"][at]
-        print(f"time {name} {at}: kernel {k['ms']:.4f} ms (graph replay; "
-              f"{k['call_ms']:.4f} ms as back-to-back calls), bound "
-              f"{k['bound_ms']:.6f} ms ({k['bound_by']}, "
-              f"{100 * k['bound_ms'] / k['ms']:.1f}% of the kernel), chain bound "
-              f"{cb:.6f} ms ({how} / {mhz:.0f} MHz, {100 * cb / k['ms']:.1f}% of "
-              f"the kernel), plain {k['plain_ms']:.4f} ms, library none ({gpu})")
+        call = lambda: getattr(linrec, name)(*args)
+        nbytes, ops = (two_work if name == "affine2_scan" else nd_work)(args)
+        ms = graph_ms(torch, call, 20)
+        call_ms = time_ms(torch, call, 20)
+        bms, bby = bound(float(nbytes), float(ops))
+        crit, crit_how = (m3_path if name == "affine2_scan" else m2_path)(args)
+        walk, walk_how = walk_bound(name, args)
+        crit_ms, walk_ms = crit / mhz * 1e-3, walk / mhz * 1e-3
+        if "ms" not in k:
+            k["ms_at"] = at
+            k["ms"], k["call_ms"] = ms, call_ms
+            k["plain_ms"] = time_ms(torch, lambda: getattr(
+                linrec, f"{name}_plain")(*args), 1, warmup=0)
+            k["bound_ms"], k["bound_by"] = bms, bby
+            k["library_ms"] = None
+            k["sm_mhz"] = mhz
+            k["critical_path_ms"] = {at: crit_ms}
+            k["chain_bound_ms"] = {at: walk_ms}
+        print(f"time {name} {at}: kernel {ms:.4f} ms (graph replay; {call_ms:.4f} "
+              f"ms as back-to-back calls), bound {bms:.6f} ms ({bby}, "
+              f"{100 * bms / ms:.1f}% of the kernel), critical path "
+              f"{crit_ms:.6f} ms ({crit_how} / {mhz:.0f} MHz, "
+              f"{100 * crit_ms / ms:.1f}% of the kernel; plan "
+              f"{scan_plan(name, args)}), the walk in order's chain bound "
+              f"{walk_ms:.6f} ms ({walk_how}), "
+              + (f"plain {k['plain_ms']:.4f} ms" if k["ms_at"] == at else
+                 "plain timed at the first shape only")
+              + f", library none ({gpu})")
     for name in names:
         kernels[name]["launches"] = sum(kernels[name]["by_path"].values())
     print(f"modulation launches by path: "
@@ -4932,7 +5056,8 @@ def main() -> int:
                                    "scratch_bytes", "record_bytes",
                                    "record_ms", "record_bound_ms",
                                    "record_launches_by_path",
-                                   "chain_bound_ms", "step_cycles", "sm_mhz")
+                                   "chain_bound_ms", "critical_path_ms",
+                                   "step_cycles", "sm_mhz")
                    if key in k}}
         for name, k in kernels.items()]}
     print(json.dumps(line))

@@ -5,11 +5,13 @@ versions on the CPU, and the wrappers' validation.
 
 Tolerances: M1's model is bit-equal to its plain version in float32 and
 float64 (both round every product and sum alike, and each stretch of a
-call takes the reference's form); M2's and M3's models walk in order
-where the plain versions compose by doubling, so float64 >= 200 dB and
-float32 >= 100 dB, or no more than 6 dB under the plain version's own
-float32 reading against float64 where that is lower (the bars
-chip_smoke.py holds the kernels to).
+call takes the reference's form); M2's and M3's models follow the
+kernels' chunked scans over time (`linrec.m2_plan`, `linrec.m3_plan`:
+chunk maps, the carry in the kernels' order, the walk from each chunk's
+entering state) where the plain versions compose by doubling, so
+float64 >= 200 dB and float32 >= 100 dB, or no more than 6 dB under the
+plain version's own float32 reading against float64 where that is lower
+(the bars chip_smoke.py holds the kernels to).
 """
 
 import numpy as np
@@ -77,32 +79,154 @@ def _m1_model(fl, buf, w, x, d):
     return buf, y, lanes, walked
 
 
-def _m2_model(A, w, s0):
-    """csrc/affine.cu::affine_scan_nd_kernel: lane i forms row i of A_n s
-    plus w_n, summed over j in order."""
-    n, d = A.shape[0], A.shape[-1]
-    after = np.empty_like(w)
-    s = s0.copy()
-    for k in range(n):
-        new = w[:, k, :].copy()
-        for j in range(d):
-            new = new + A[k, :, j] * s[:, j:j + 1]
-        s = new
-        after[:, k, :] = s
-    return after, s
+def _compose2(l, e):
+    """Maps s -> M s + b of csrc/affine.cu's M3, packed [m00 m01 m10 m11 b0
+    b1] on the last axis: l after e."""
+    m = lambda x, i: x[..., i]
+    return np.stack([m(l, 0) * m(e, 0) + m(l, 1) * m(e, 2),
+                     m(l, 0) * m(e, 1) + m(l, 1) * m(e, 3),
+                     m(l, 2) * m(e, 0) + m(l, 3) * m(e, 2),
+                     m(l, 2) * m(e, 1) + m(l, 3) * m(e, 3),
+                     m(l, 0) * m(e, 4) + m(l, 1) * m(e, 5) + m(l, 4),
+                     m(l, 2) * m(e, 4) + m(l, 3) * m(e, 5) + m(l, 5)], -1)
 
 
-def _m3_model(A, w, s0):
-    """csrc/affine.cu::affine2_scan_kernel: one thread a channel, the
-    state before each step recorded."""
-    s = s0.copy()
+def _apply2(m, x):
+    return np.stack([m[..., 0] * x[..., 0] + m[..., 1] * x[..., 1] + m[..., 4],
+                     m[..., 2] * x[..., 0] + m[..., 3] * x[..., 1] + m[..., 5]], -1)
+
+
+def _shift_scan(maps, width):
+    """Hillis-Steele inclusive scan along axis -2 in groups of `width`
+    (a warp's shuffles): at offset o, element i >= o of its group takes
+    itself after element i - o."""
+    t = maps.copy()
+    lane = np.arange(t.shape[-2]) % width
+    o = 1
+    while o < width:
+        up = np.concatenate([t[..., :o, :], t[..., :-o, :]], axis=-2)
+        t = np.where((lane >= o)[:, None], _compose2(t, up), t)
+        o *= 2
+    return t
+
+
+def _m3_model(A, w, s0, sms=linrec.H100_SMS):
+    """csrc/affine.cu::affine2_chunked for every channel, on the schedule
+    of `linrec.m3_plan`: each pass, every block of a channel's cluster
+    stages a tile; a thread composes its chunk's map from zero state;
+    the maps are scanned over the lanes of each warp, then over the warp
+    totals; the ranks' tile maps fold in rank order from the pass's
+    entering state; each chunk walks again from its entering state. The
+    maps and the walk run in float64 for either type, the stored states
+    rounded to it."""
+    C, n = A.shape[0], A.shape[-2]
+    L, nt, B, tile = linrec.m3_plan(n, C, A.itemsize, sms)
+    ident = np.array([1, 0, 0, 1, 0, 0], dtype=np.float64)
+    steps = np.concatenate([A, w], -1).astype(np.float64)   # (C, n, 6)
     entry = np.empty_like(w)
-    for k in range(A.shape[-2]):
-        entry[:, k] = s
-        a = A[:, k]
-        s = np.stack([a[:, 0] * s[:, 0] + a[:, 1] * s[:, 1] + w[:, k, 0],
-                      a[:, 2] * s[:, 0] + a[:, 3] * s[:, 1] + w[:, k, 1]], -1)
-    return entry, s
+    s_pass = s0.astype(np.float64)
+    for pbase in range(0, n, B * tile):
+        tiles = []
+        for r in range(B):
+            base = pbase + r * tile
+            length = max(0, min(tile, n - base))
+            m = np.broadcast_to(ident, (C, nt, 6)).copy()
+            for i in range(L if length else 0):             # local
+                k = np.arange(nt) * L + i
+                live = k < length
+                st = steps[:, base + np.minimum(k, length - 1)]
+                m = np.where(live[:, None], _compose2(st, m), m)
+            incl = _shift_scan(m, 32)
+            nw = nt // 32
+            tot = np.broadcast_to(ident, (C, 32, 6)).copy()
+            tot[:, :nw] = incl[:, 31::32]
+            tot = _shift_scan(tot, 32)[:, :nw]
+            tiles.append((base, length, incl, tot))
+        x = s_pass
+        s_tile = []
+        for _, _, _, tot in tiles:                          # carry
+            s_tile.append(x)
+            x = _apply2(tot[:, -1], x)
+        s_pass = x
+        for (base, length, incl, tot), xt in zip(tiles, s_tile):
+            x = np.broadcast_to(xt[:, None], (C, nt, 2)).copy()
+            warp = np.arange(nt) // 32
+            lane = np.arange(nt) % 32
+            wprev = np.concatenate([tot[:, :1], tot], 1)[:, warp]
+            x = np.where((warp > 0)[:, None], _apply2(wprev, x), x)
+            lprev = np.concatenate([incl[:, :1], incl[:, :-1]], 1)
+            x = np.where((lane > 0)[:, None], _apply2(lprev, x), x)
+            for i in range(L):                              # walk
+                k = np.arange(nt) * L + i
+                live = k < length
+                idx = base + k[live]
+                entry[:, idx] = x[:, live]
+                x[:, live] = _apply2(steps[:, idx], x[:, live])
+            if length and base + length == n:
+                fin = x[:, (length - 1) // L].astype(w.dtype)
+    return entry, fin
+
+
+def _m2_model(A, w, s0, sms=linrec.H100_SMS):
+    """csrc/affine.cu::affine_nd_chunked for every channel, on the
+    schedule of `linrec.m2_plan`: each pass, every block of a cluster
+    takes a tile of K chunks; the chunk composites P_k (shared by the
+    channels), the zero-state chunk ends, the prefix products Q_k and the
+    zero-state chunk entries e0_k carried in order; the ranks' tile maps
+    (Q_K, zero-state end) fold in rank order; each chunk walks again from
+    e0_k + Q_k s. Sums over j run in order, as the kernel's unrolled
+    loops add them."""
+    n, d = A.shape[0], A.shape[-1]
+    C = w.shape[0]
+    _, K, L, _, B = linrec.m2_plan(n, C, d, A.itemsize, sms)
+    tile = K * L
+    eye = np.eye(d, dtype=A.dtype)
+
+    def mv(M, x, b=None):
+        """M x (+ b), summed over j in order; M (..., d, d), x (..., d)."""
+        acc = np.zeros_like(x) if b is None else b.copy()
+        for j in range(d):
+            acc = acc + M[..., :, j] * x[..., j:j + 1]
+        return acc
+
+    after = np.empty_like(w)
+    fin = None
+    s_pass = s0.copy()
+    for pbase in range(0, n, B * tile):
+        tiles = []
+        for r in range(B):
+            base = pbase + r * tile
+            length = max(0, min(tile, n - base))
+            bounds = [(min(k * L, length), min(k * L + L, length)) for k in range(K)]
+            P, E = [], []
+            for a, b in bounds:                             # local
+                Pk, x = eye.copy(), np.zeros((C, d), A.dtype)
+                for t in range(base + a, base + b):
+                    Pk = mv(A[t], Pk.T).T
+                    x = mv(A[t], x, w[:, t])
+                P.append(Pk)
+                E.append(x)
+            Q, x, e0 = [eye], np.zeros((C, d), A.dtype), []
+            for k in range(K):                              # carry
+                Q.append(mv(P[k], Q[-1].T).T)
+                e0.append(x)
+                x = mv(P[k], x, E[k])
+            tiles.append((base, bounds, Q, e0, x))
+        x = s_pass
+        s_tile = []
+        for _, _, Q, _, bseg in tiles:
+            s_tile.append(x)
+            x = mv(Q[K], x, bseg)
+        s_pass = x
+        for (base, bounds, Q, e0, _), xt in zip(tiles, s_tile):
+            for k, (a, b) in enumerate(bounds):             # walk
+                x = mv(Q[k], xt, e0[k])
+                for t in range(base + a, base + b):
+                    x = mv(A[t], x, w[:, t])
+                    after[:, t] = x
+                if b > a and base + b == n:
+                    fin = x
+    return after, fin
 
 
 # the flanger's forms: the registry's default base delay (46-sample blocks,
@@ -154,10 +278,19 @@ def test_m1_model_bit_equal_to_plain(form, dtype):
         assert counts[1] == 0 and fl._block >= 16
 
 
+# ragged lengths: one step, under a chunk, a chunk and one either side,
+# and lengths over several blocks of a cluster (M3's 36000 in float64
+# also takes two passes of its cluster of 8)
+M2_LENGTHS = (1, linrec.M2_CHUNK - 1, linrec.M2_CHUNK + 1, 516)
+M3_LENGTHS = (1, linrec.M3_CHUNK - 1, linrec.M3_CHUNK + 1, 4000, 36000)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_m2_model_matches_plain(dtype):
+@pytest.mark.parametrize("n", M2_LENGTHS)
+def test_m2_model_matches_plain(n, dtype):
     """The Phaser's reduced recurrence at the registry's 6 stages (d = 7)
-    over 517 samples from a random state."""
+    over n steps from a random state; at 516 steps a cluster of 8 blocks
+    takes each channel group, the last block a ragged share."""
     ph = Phaser(SR, stages=6, feedback=0.7, rate_hz=3.0)
     rng = np.random.default_rng(6)
     xt = torch.as_tensor(rng.standard_normal((C, 517)).astype(dtype))
@@ -171,6 +304,9 @@ def test_m2_model_matches_plain(dtype):
         A[:, i + 1, i + 1] -= a
     w = torch.as_tensor(rng.standard_normal((C, 516, d)).astype(dtype))
     s0 = torch.as_tensor(rng.standard_normal((C, d)).astype(dtype))
+    A, w = A[:n].contiguous(), w[:, :n].contiguous()
+    if n == 516:
+        assert linrec.m2_plan(n, C, d, A.element_size())[-1] == 8
     after, fin = linrec.affine_scan_nd_plain(A, w, s0)
     after_m, fin_m = _m2_model(A.numpy(), w.numpy(), s0.numpy())
     bar = 200 if dtype == "float64" else 100
@@ -178,17 +314,19 @@ def test_m2_model_matches_plain(dtype):
     assert snr_db(fin.numpy(), fin_m) >= bar
 
 
-def test_m3_model_matches_plain():
+@pytest.mark.parametrize("n", M3_LENGTHS)
+def test_m3_model_matches_plain(n):
     """The AutoWah's DF2T coefficients at its defaults, from a one-pole
     envelope of a level-stepped input (the wah sweeping its range), over
-    4000 samples from a random state. The walk in order is no less
-    accurate against float64 than the plain version's doubling (here 111
-    dB in float32 against the doubling's 85), so in float32 it is held to
-    >= 100 dB or to 6 dB under the plain version's own reading."""
+    n samples from a random state. The chunked scan is no less accurate
+    against float64 than the plain version's doubling, within 1 dB (at
+    4000 samples 115 dB in float32 against the doubling's 85), so in
+    float32 it is held to >= 100 dB or to 6 dB under the plain version's
+    own reading."""
     aw = AutoWah(SR)
     rng = np.random.default_rng(7)
-    x = rng.standard_normal((C, 4000)) * np.repeat(rng.uniform(0.01, 1.0, (C, 8)),
-                                                   500, axis=1)
+    x = rng.standard_normal((C, n)) * np.repeat(
+        rng.uniform(0.01, 1.0, (C, -(-n // 500))), 500, axis=1)[:, :n]
     env, e = np.empty_like(x), np.zeros(C)
     for k in range(x.shape[-1]):
         t = np.abs(x[:, k])
@@ -209,11 +347,15 @@ def test_m3_model_matches_plain():
         entry, fin = linrec.affine2_scan_plain(*map(torch.as_tensor, args))
         entry_m, fin_m = _m3_model(*args)
         np.testing.assert_array_equal(entry.numpy()[:, 0], args[2])
+        np.testing.assert_array_equal(entry_m[:, 0], args[2])
         plain_class = snr_db(ref[0], entry.numpy())
         bar = 200 if dtype == "float64" else min(100, plain_class - 6.0)
         assert snr_db(entry.numpy(), entry_m) >= bar
         assert snr_db(fin.numpy(), fin_m) >= bar
         assert snr_db(ref[0], entry_m) >= plain_class - 1.0
+    if n == 36000:
+        _, _, B, tile = linrec.m3_plan(n, C, 8)
+        assert B == 8 and B * tile < n
 
 
 def test_wrappers_validate_and_skip_empty_calls():
