@@ -13,13 +13,15 @@
 //       the blocked scan of process :254-299).
 //
 // Each kernel walks the reference's per-sample recurrence in place on the
-// ring buffers the JAX package keeps as state, one warp a channel, four
-// channels a block. Every feedback read lags at least 40 samples (R1, a
-// chunk at a time: a chunk with a shorter lag walks on one lane), 225 (R2)
-// or the shortest FDN line (R3), so the 32 samples of a chunk run on the
-// 32 lanes at once: all lanes load, then all store, and only a chunk's
-// one-pole dampings walk its samples in order (lanes 0-7, one comb or
-// line each). M1's lag never drops below max(base delay, 1 sample): a
+// ring buffers the JAX package keeps as state. R1, R2 and M1 take one warp
+// a channel, four channels a block. Every feedback read lags at least 40
+// samples (R1, a chunk at a time: a chunk with a shorter lag walks on one
+// lane) or 225 (R2), so the 32 samples of a chunk run on the 32 lanes at
+// once: all lanes load, then all store, and only a chunk's one-pole
+// dampings walk its samples in order (lanes 0-7, one comb each). R3 reads
+// lag at least the shortest FDN line, longer than the reference's block:
+// it takes a block a channel and a whole stretch of up to a block a pass
+// (its section below). M1's lag never drops below max(base delay, 1 sample): a
 // chunk where no sample reads a slot an earlier sample of the chunk
 // writes runs on its lanes, any other (lags under ~0.7 ms) on one lane
 // in order. The bound of all four at the chain's shapes is the dependent
@@ -314,55 +316,122 @@ __global__ void __launch_bounds__(kWarp * kWarps) freeverb_kernel(
 // ---------------------------------------------------------------------------
 // R3: the FDN
 // ---------------------------------------------------------------------------
+//
+// One block walks one channel, a stretch of the call at a time: a whole
+// `_block` block of the blocked tier, or up to max(1, B) samples of the
+// per-sample tier (the chain's 512-sample call in one). A stretch is never
+// longer than the reference's block, B = min(1024, floor(min line delay) -
+// 2), and every read lags at least the shortest line delay less one, so no
+// sample of a stretch reads what the same stretch writes: all its reads
+// come first, then all its writes (a read of a slot that a later sample of
+// the stretch overwrites sees the old value, as in the walk in order).
+// A stretch runs in four passes, a block barrier after each:
+//   1. the per-sample tier's LFO phases, one recurrence of adds in order
+//      (thread 0, into shared memory; the blocked tier forms each sample's
+//      phase from its block's start, in the next pass);
+//   2. each sample on a thread: the 8 modulated interpolated reads (8 sin
+//      calls, the full-precision library function), the output, and the
+//      Hadamard mix into shared memory (8 lines x stretch);
+//   3. the damping one-pole of each line as a scan over the stretch: a
+//      warp a line, a lane a chunk of ceil(stretch / 32) samples walked in
+//      order from zero (lane 0 from the line's state), the chunks' affine
+//      maps composed by shuffles, each sample then taking its chunk's
+//      entering state times damp^(its place in the chunk + 1);
+//   4. the writes of the 8 lines.
+// Stretches run in order: each reads what the one before it wrote.
+// The scan rounds otherwise than the walk in order and the reference's
+// sweep (`_damp_block`): held at >= 100 dB against the plain version in
+// float32 and >= 200 dB in float64. Bound: the bytes are a few per sample
+// and line; what remains in order is the per-sample tier's phase (one add
+// and one compare a sample) and a chunk's damping walk; the reads and mix
+// wait on the sin calls and the loads they address.
 
 constexpr int kLines = 8;
+constexpr int kFdnThreads = 512;
+constexpr int kFdnMaxStretch = 1024;
+constexpr int kFdnChunks = 32;   // lanes of a line's scan
+
+// a line's row in shared memory holds sample t at t + t / 32, so that the
+// scan's lanes, a chunk apart, read distinct banks
+__device__ __forceinline__ int fdn_pad(int t) { return t + (t >> 5); }
+inline int fdn_row(int stretch) { return stretch + stretch / 32 + 1; }
 
 template <typename T>
 struct FdnParams {
   T base[kLines], fbg[kLines], off[kLines], had[kLines * kLines];
   T depth, dph, dph_block, two_pi, gain, damp, omd_block, omd_sample, wet, dry;
-  int L, B;
+  int L, B, stretch, row;   // row: fdn_row(stretch)
   long long N, nb;
 };
 
+// py_mod(a, two_pi), taking the exact short cuts where a lies in
+// [0, 2 two_pi) (fmod of such an a is a or a - two_pi, exactly)
 template <typename T>
-__global__ void __launch_bounds__(kWarp * kWarps) fdn_kernel(
+__device__ __forceinline__ T wrap_phase(T a, T two_pi) {
+  if (a >= T(0) && a < two_pi) return a;
+  if (a >= two_pi && a < two_pi + two_pi) return a - two_pi;
+  return py_mod(a, two_pi);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFdnThreads) fdn_kernel(
     T* __restrict__ lines, const T* __restrict__ fst_in, T* __restrict__ fst_out,
     const T* __restrict__ lfo_in, T* __restrict__ lfo_out,
     const int* __restrict__ step_in, int* __restrict__ step_out,
     const T* __restrict__ x, const T* __restrict__ inp, T* __restrict__ y,
-    int C, FdnParams<T> p) {
-  __shared__ T s_fb[kWarps][kLines][kWarp];
-  const int lane = threadIdx.x % kWarp;
-  const int wi = threadIdx.x / kWarp;
-  const int c = blockIdx.x * kWarps + wi;
-  if (c >= C) return;
+    FdnParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_f = reinterpret_cast<T*>(smem_raw);   // (8, row): mix, then damped
+  T* s_ph = s_f + kLines * p.row;            // (stretch,): per-sample phases
+  __shared__ T s_pw[kFdnMaxStretch / kFdnChunks + 1];   // damp^k
+  __shared__ T s_lfo;
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp, wi = tid / kWarp;
   const int L = p.L;
   const long long N = p.N;
   const long long step = *step_in;
   T lfo = *lfo_in;
-  T fst = lane < kLines ? fst_in[c * kLines + lane] : T(0);
+  T fst = wi < kLines ? fst_in[c * kLines + wi] : T(0);
+  for (int k = tid; k <= kFdnMaxStretch / kFdnChunks; k += blockDim.x)
+    s_pw[k] = static_cast<T>(pow(static_cast<double>(p.damp),
+                                 static_cast<double>(k)));
   T* row = lines + static_cast<size_t>(c) * kLines * L;
   const T* xc = x + static_cast<size_t>(c) * N;
   const T* ic = inp + static_cast<size_t>(c) * N;
   T* yc = y + static_cast<size_t>(c) * N;
 
-  // one chunk of cnt samples from call sample k0; blocked: the chunk lies
-  // in the block that starts at call sample kb with phase lfo_b
-  auto chunk = [&](long long k0, int cnt, bool blocked, long long kb, T lfo_b,
-                   T my_lfo) {
-    const bool live = lane < cnt;
-    const long long k = k0 + lane;
-    const long long n = step + k;
-    T d[kLines];
-    T xv = T(0), iv = T(0);
-    if (live) {
-      xv = xc[k];
-      iv = ic[k];
-      const long long t = k - kb;
-      const T ph = blocked ? py_mod(lfo_b + p.dph * static_cast<T>(t), p.two_pi)
-                           : my_lfo;
+  // the stretch [k0, k0 + len) of the call; blocked: one whole block of
+  // the blocked tier, whose phase at its start is lfo
+  auto stretch = [&](long long k0, int len, bool blocked) {
+    if (!blocked) {
+      if (tid == 0) {   // the phase accumulates in order
+        T ph = lfo;
+        if (ph >= T(0) && ph < p.two_pi && p.dph >= T(0) && p.dph < p.two_pi) {
+          // every sum then lies in [0, 2 two_pi): one compare a step
+#pragma unroll 8
+          for (int t = 0; t < len; ++t) {
+            s_ph[t] = ph;
+            const T a = ph + p.dph;
+            ph = a >= p.two_pi ? a - p.two_pi : a;
+          }
+        } else {
+          for (int t = 0; t < len; ++t) {
+            s_ph[t] = ph;
+            ph = wrap_phase(ph + p.dph, p.two_pi);
+          }
+        }
+        s_lfo = ph;
+      }
+      __syncthreads();
+    }
+    for (int t = tid; t < len; t += blockDim.x) {
+      const long long k = k0 + t;
+      const long long n = step + k;
+      const T ph = blocked ? wrap_phase(lfo + p.dph * static_cast<T>(t), p.two_pi)
+                           : s_ph[t];
       const T wp = static_cast<T>(imod(n, L));
+      T d[kLines];
 #pragma unroll
       for (int i = 0; i < kLines; ++i) {
         const T m = T(0.5) * (T(1) + sin_of(ph + p.off[i]));
@@ -385,56 +454,65 @@ __global__ void __launch_bounds__(kWarp * kWarps) fdn_kernel(
       T sum = d[0];
 #pragma unroll
       for (int i = 1; i < kLines; ++i) sum = sum + d[i];
-      yc[k] = xv * p.dry + (sum * p.gain) * p.wet;
+      yc[k] = xc[k] * p.dry + (sum * p.gain) * p.wet;
 #pragma unroll
       for (int i = 0; i < kLines; ++i) {
         T f = p.had[i * kLines] * d[0];
 #pragma unroll
         for (int j = 1; j < kLines; ++j) f = f + p.had[i * kLines + j] * d[j];
-        s_fb[wi][i][lane] = f;
+        s_f[i * p.row + fdn_pad(t)] = f;
       }
     }
-    __syncwarp();
-    if (lane < kLines) {
+    __syncthreads();
+    if (wi < kLines) {   // line wi's damping, lane `lane` a chunk
       const T omd = blocked ? p.omd_block : p.omd_sample;
-      for (int g = 0; g < cnt; ++g) {
-        const T f = s_fb[wi][lane][g] * omd + fst * p.damp;
-        s_fb[wi][lane][g] = f;
-        fst = f;
+      const int lc = (len + kFdnChunks - 1) / kFdnChunks;
+      const int t0 = min(len, lane * lc), t1 = min(len, t0 + lc);
+      T* f = s_f + wi * p.row;
+      T z = lane == 0 ? fst : T(0);
+      for (int t = t0; t < t1; ++t) {
+        z = f[fdn_pad(t)] * omd + z * p.damp;
+        f[fdn_pad(t)] = z;
       }
+      // the chunks' maps s -> P s + e, composed in order over the lanes
+      T P = lane == 0 ? T(0) : s_pw[t1 - t0], e = z;
+#pragma unroll
+      for (int o = 1; o < kFdnChunks; o <<= 1) {
+        const T Pu = __shfl_up_sync(kFull, P, o);
+        const T eu = __shfl_up_sync(kFull, e, o);
+        if (lane >= o) {
+          e = P * eu + e;
+          P = P * Pu;
+        }
+      }
+      const T carry = __shfl_up_sync(kFull, e, 1);   // the chunk's entering state
+      if (lane > 0)
+        for (int t = t0; t < t1; ++t)
+          f[fdn_pad(t)] = f[fdn_pad(t)] + s_pw[t - t0 + 1] * carry;
+      fst = __shfl_sync(kFull, e, kFdnChunks - 1);
     }
-    __syncwarp();
-    if (live) {
-      const long long wpos = imod(n, L);
+    __syncthreads();
+    for (int t = tid; t < len; t += blockDim.x) {
+      const long long k = k0 + t;
+      const long long wpos = imod(step + k, L);
+      const T iv = ic[k];
 #pragma unroll
       for (int i = 0; i < kLines; ++i)
         row[static_cast<size_t>(i) * L + wpos] =
-            iv * p.gain + s_fb[wi][i][lane] * p.fbg[i];
+            iv * p.gain + s_f[i * p.row + fdn_pad(t)] * p.fbg[i];
     }
-    __syncwarp();
+    if (blocked)
+      lfo = wrap_phase(lfo + p.dph_block, p.two_pi);
+    else
+      lfo = s_lfo;
+    __syncthreads();
   };
 
-  for (long long b = 0; b < p.nb; ++b) {
-    const long long kb = b * p.B;
-    for (long long k0 = kb; k0 < kb + p.B; k0 += kWarp) {
-      const int cnt = static_cast<int>(kb + p.B - k0 < kWarp ? kb + p.B - k0 : kWarp);
-      chunk(k0, cnt, true, kb, lfo, T(0));
-    }
-    lfo = py_mod(lfo + p.dph_block, p.two_pi);
-  }
-  for (long long k0 = p.nb * p.B; k0 < N; k0 += kWarp) {
-    const int cnt = static_cast<int>(N - k0 < kWarp ? N - k0 : kWarp);
-    // the per-sample phase accumulates: every lane runs the chunk's
-    // recurrence and keeps its own sample's value
-    T mine = lfo;
-    for (int g = 0; g < cnt; ++g) {
-      if (g == lane) mine = lfo;
-      lfo = py_mod(lfo + p.dph, p.two_pi);
-    }
-    chunk(k0, cnt, false, 0, T(0), mine);
-  }
-  if (lane < kLines) fst_out[c * kLines + lane] = fst;
-  if (c == 0 && lane == 0) {
+  for (long long b = 0; b < p.nb; ++b) stretch(b * p.B, p.B, true);
+  for (long long k0 = p.nb * p.B; k0 < N; k0 += p.stretch)
+    stretch(k0, static_cast<int>(N - k0 < p.stretch ? N - k0 : p.stretch), false);
+  if (wi < kLines && lane == 0) fst_out[c * kLines + wi] = fst;
+  if (c == 0 && tid == 0) {
     *lfo_out = lfo;
     *step_out = static_cast<int>(step + N);
   }
@@ -638,6 +716,10 @@ int fdn_launch(T* lines, const T* fst_in, T* fst_out, const T* lfo_in,
   // prm: base delays (8), feedback gains (8), phase offsets (8), the
   // scaled Hadamard (64, row-major), mod depth, dphase, dphase * B, gain,
   // damp, wet, dry
+  // the per-sample tier's stretch: the reference's block, at least 1
+  const int stretch = B < 1 ? 1 : B;
+  if (C < 1 || stretch > kFdnMaxStretch || nb < 0 || (nb > 0 && B < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   FdnParams<T> p;
   for (int i = 0; i < kLines; ++i) {
     p.base[i] = static_cast<T>(prm[i]);
@@ -658,12 +740,27 @@ int fdn_launch(T* lines, const T* fst_in, T* fst_out, const T* lfo_in,
   p.dry = static_cast<T>(s[6]);
   p.L = L;
   p.B = B;
+  p.stretch = stretch;
+  p.row = fdn_row(stretch);
   p.N = N;
   p.nb = nb;
-  fdn_kernel<T><<<grid_of(C), kWarp * kWarps, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      lines, fst_in, fst_out, lfo_in, lfo_out, step_in, step_out, x, inp, y,
-      C, p);
+  const size_t smem = static_cast<size_t>(kLines * p.row + stretch) * sizeof(T);
+  // opt in once per device to the largest stretch's shared memory, so that
+  // later calls and a CUDA graph capturing them make no attribute call
+  static int opted_in[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !opted_in[dev]) {
+    const int most = static_cast<int>(
+        (kLines * fdn_row(kFdnMaxStretch) + kFdnMaxStretch) * sizeof(T));
+    err = cudaFuncSetAttribute(fdn_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) opted_in[dev] = 1;
+  }
+  fdn_kernel<T><<<C, kFdnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      lines, fst_in, fst_out, lfo_in, lfo_out, step_in, step_out, x, inp, y, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -743,7 +840,8 @@ int freeverb_f64(void* const* rings, const int* lens, const double* fs_in,
 // lines (C, 8, L) updated in place; fst_in, fst_out (C, 8); lfo_in,
 // lfo_out one value each and step_in, step_out one int32 each on the
 // device; x, inp (the pre-delayed input), y (C, N); nb blocks of B samples
-// in the blocked form, then N - nb * B in the per-sample form; prm: 95
+// in the blocked form, then N - nb * B in the per-sample form, in stretches
+// of up to max(1, B) samples (B <= 1024, the reference's block); prm: 95
 // doubles on the host.
 int fdn_f32(float* lines, const float* fst_in, float* fst_out,
             const float* lfo_in, float* lfo_out, const int* step_in,

@@ -7,9 +7,12 @@ Pallas).
 
 Each loop reads its own output back through a delay line, so it runs
 sample by sample. The CUDA kernels of `csrc/feedback.cu` walk that
-recurrence in place on the rings the JAX package keeps as state (one
-warp a channel, a chunk of 32 samples on the 32 lanes, the damping
-one-poles in order on lanes 0-7); `*_plain` are the JAX package's own
+recurrence in place on the rings the JAX package keeps as state: R1, R2
+and M1 one warp a channel, a chunk of 32 samples on the 32 lanes, the
+damping one-poles in order on lanes 0-7; R3 one block a channel, a whole
+stretch (a reference block, or up to as many samples of the per-sample
+tier) a pass, its damping a scan over the stretch, since no read lags
+less than the stretch. `*_plain` are the JAX package's own
 `process` algorithms in plain PyTorch: the blocked tiers (a Python loop
 over 128-sample or `_block` blocks, Freeverb's damping as a Toeplitz
 product under `full_float32()`, the FDN's as a Hillis-Steele scan) and

@@ -14,12 +14,15 @@ and takes `seek // 2` instead where every norm2 <= 1e-12 or the segment
 is a boundary one. Its start is a_i + best and the next tail start + flat,
 so each step reads from where the last one landed.
 
-The CUDA kernel `csrc/wsola.cu` walks a channel's segments in one block;
-`wsola_search_plain` is the same walk in plain PyTorch, a loop over the
-segments on (C, seek) tensors whose scores are summed over j in order
-with each product and sum rounded by itself, as the kernel sums them, so
-the two agree bit for bit. (Elementwise products: no TF32 setting
-reaches them.) A CUDA tensor runs the kernel (or raises); a CPU tensor
+The CUDA kernel `csrc/wsola.cu` walks a channel's segments on one
+thread-block cluster of `CLUSTER` blocks, each block scoring its share of
+a step's offsets (`plan`: staged in shared memory, or in tiles where the
+seek and overlap are long) and the cluster reducing the argmax through
+distributed shared memory; `wsola_search_plain` is the same walk in plain
+PyTorch, a loop over the segments on (C, seek) tensors whose scores are
+summed over j in order with each product and sum rounded by itself, as
+the kernel sums them, so the two agree bit for bit. (Elementwise
+products: no TF32 setting reaches them.) A CUDA tensor runs the kernel (or raises); a CPU tensor
 runs the plain version. The starts are integers, so the search needs no
 gradient: it runs on detached tensors, and a gradient with respect to x
 flows through the gather of the segments that follows it.
@@ -37,10 +40,36 @@ from algodsp_tpu_torch import _build
 _EPS = 1e-12
 _SYMBOLS = {torch.float32: "wsola_search_f32", torch.float64: "wsola_search_f64"}
 # wsola_search_f{32,64}(x, csq, region_starts, boundary, starts, C, n_ext, S,
-#                       ov, seek, flat, tail0, stream)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+#                       ov, seek, flat, tail0, threads, tiled, stream)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] \
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# blocks a channel's cluster (csrc/wsola.cu's kCluster: the portable size)
+CLUSTER = 8
+# consecutive offsets a thread sums at once (csrc/wsola.cu's kGroup)
+GROUP = 2
+# the H100's shared memory a block, less the kernel's static inboxes
+_SMEM_BYTES = 232448 - 12288
+
+
+def plan(seek: int, ov: int, itemsize: int):
+    """The kernel's schedule: (offsets a block, threads a block, tiled).
+    Block r of a channel's cluster scores offsets [r pb, (r + 1) pb) of
+    each step, summing thread t the groups of GROUP consecutive offsets t,
+    t + threads - 32, ... of its share; the last warp copies. The staged
+    schedule keeps in shared memory the step's reference copied to an
+    aligned place (ov samples), and two stages of the window the next
+    reference lies in (seek - 1 + ov), the block's region slice (pb - 1 +
+    ov, and room for its last pair's loads) and its energies (2 pb), each
+    part on 16 bytes. Where those do not fit, the tiled schedule takes the
+    offsets in passes and j in tiles (csrc/wsola.cu), with the same
+    threads and reductions."""
+    pb = -(-seek // CLUSTER)
+    pb2 = -(-pb // GROUP) * GROUP
+    threads = min(512, -(-(pb2 // GROUP) // 32) * 32 + 32)
+    up4 = lambda n: -(-n // 4) * 4
+    staged = (up4(ov) + 2 * (up4(seek + ov - 1) + up4(pb2 + ov) + up4(2 * pb2))) \
+        * itemsize
+    return pb, threads, staged > _SMEM_BYTES
 
 
 def energy_prefix(x2):
@@ -136,15 +165,17 @@ def launch(x2, csq, starts_dev, boundary_dev, ov: int, seek: int, flat: int,
            tail0: int):
     """W1 on checked, contiguous CUDA tensors, with the grid already on the
     card (int32 region starts, uint8 boundary flags): no host copy, so a
-    CUDA graph can capture it."""
+    CUDA graph can capture it. A refused cluster launch raises."""
     fn = _entry(x2.dtype)
     c, n = x2.shape
     s_count = starts_dev.shape[0]
+    _, threads, tiled = plan(seek, ov, x2.element_size())
     starts = torch.empty((s_count, c), dtype=torch.int32, device=x2.device)
     with torch.cuda.device(x2.device):
         code = fn(*(_build.ptr(t) for t in (x2, csq, starts_dev, boundary_dev,
                                              starts)),
-                  c, n, s_count, ov, seek, flat, int(tail0), _build.stream_of(x2))
+                  c, n, s_count, ov, seek, flat, int(tail0), threads,
+                  int(tiled), _build.stream_of(x2))
         wsola_search.launches += 1
     _build.check("wsola", code, "wsola_search")
     return starts

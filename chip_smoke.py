@@ -165,8 +165,10 @@ Phases, each printing its own lines:
  13. voice — the last effects and the dither quantizer: W1 (the WSOLA
                alignment search) against its plain version on the card
                (the music preset at +3, -4 and +12 semitones and the
-               pitch-time node at +3, 8 x 48128, float32 and float64; the
-               starts equal, the smallest best/second score gap printed);
+               pitch-time node at +3, 8 x 48128, -4 and +12 at 1 and 64
+               channels, the tiled schedule at 192 kHz, float32 and
+               float64; the starts equal, a second call equal, the
+               smallest best/second score gap printed);
                Q1 (the quantizer's error-feedback loop) bit-equal to its
                plain version (codes and state, FIR and IIR shelf, float32
                and float64, the export block and a ragged shape; 94
@@ -1086,8 +1088,9 @@ R_SAMPLE_OPS = {"delay_feedback": 14, "freeverb_feedback": 80,
 def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
     """Phase 11: the delay feedback and reverb slice on the card. R1-R3
     against their plain versions on the card (C = 65, the chain block, a
-    ragged length, lags under 130 and under a chunk, float32 and float64,
-    two calls bit-equal to one); SPACE_GRAPH streamed over 64 ch x 94
+    ragged length, lags under 130 and under a chunk, R3 on an 8 x 48000
+    render whose blocked blocks and tail run in one call, float32 and
+    float64, two calls bit-equal to one); SPACE_GRAPH streamed over 64 ch x 94
     blocks of 512 (float32 and float64) and fused (float32), the first
     SPACE_CPU_BLOCKS blocks against the CPU path in float64, with
     launches per block, no plain version called,
@@ -1244,6 +1247,9 @@ def space_phase(torch, dev, gpu, kernels, plain_calls) -> None:
              xc(CHAIN_CH, CHAIN_BLOCK)),
             ("fdn_feedback", dt, "C=65 N=2500 (two blocks and a tail)",
              fdn_state(rv_chain, 65, dt, 77, 6.2), rv_chain, xc(65, 2500)),
+            ("fdn_feedback", dt, f"render {CHANNELS}x48000 (46 blocks and an "
+             f"896-sample tail in one call)", fdn_state(rv_chain, CHANNELS, dt, 5, 2.1),
+             rv_chain, xc(CHANNELS, 48000)),
         ]
     for name, dt, label, st0, fx, x in cases:
         if name == "delay_feedback":
@@ -2159,9 +2165,12 @@ def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
                 fdlconv) -> None:
     """Phase 13: the last effects and the dither quantizer on the card. W1
     against its plain version on the card (the music preset at +3, -4 and
-    +12 semitones and the pitch-time node at +3, 8 x 48128, float32 and
-    float64: the starts equal, the smallest gap between the best and the
-    second-best normalised score printed); Q1 bit-equal to its plain
+    +12 semitones and the pitch-time node at +3, 8 x 48128, -4 and +12 at
+    1 and 64 channels, and the tiled schedule at 192 kHz (the node's
+    longest windows and a 60 ms search, 2 x 96256), float32 and float64:
+    the starts equal, a second call equal, the smallest gap between the
+    best and the second-best normalised score printed); Q1 bit-equal to
+    its plain
     version (codes and state; the FIR at FC9 and the 8 kHz IIR shelf, the
     export block and a ragged shape; 94 streamed blocks bit-equal to one
     call); VOICE_GRAPH over 64 ch x 94 blocks of 512 and
@@ -2174,7 +2183,8 @@ def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
     ch x 94 blocks and one-shot at 8 x 48128; PITCH_GRAPH, pitch-spectral
     at -4 and +1 semitones and WSOLA at +3, -4 and +12 one-shot at 8 x
     48128 (two calls bit-equal); W1's and Q1's times beside their byte,
-    operation and chain bounds. W1 and Q1 join the `kernels` line."""
+    operation and chain bounds (W1 also at -4 and +12). W1 and Q1 join
+    the `kernels` line."""
     from algodsp_tpu_torch.chain import Chain
     from algodsp_tpu_torch.dither import Quantizer
     from algodsp_tpu_torch.effects import spatial
@@ -2245,12 +2255,30 @@ def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
                                 sequence_ms=40.0, overlap_ms=10.0,
                                 seek_window_ms=15.0)
     w1_args = {}
+    x64_np = voice_material(rng, CHAIN_CH, N_FLAGSHIP)
+    w1_cases = [("music preset +3", music(3), x8_np), ("music preset -4", music(-4), x8_np),
+                ("music preset +12", music(12), x8_np),
+                ("pitch-time node +3 (seq 40, ov 10, seek 15 ms)", node_ws, x8_np),
+                ("music preset -4, 1 channel", music(-4), x8_np[:1]),
+                ("music preset +12, 1 channel", music(12), x8_np[:1]),
+                (f"music preset -4, {CHAIN_CH} channels", music(-4), x64_np),
+                (f"music preset +12, {CHAIN_CH} channels", music(12), x64_np)]
+    # the tiled schedule: the pitch-time node's longest windows at 192 kHz
+    # (overlap 60 ms, search 40 ms: 6 tiles of j, the last ragged), and a
+    # 60 ms search (two passes of offsets a block)
+    x192_np = voice_material(rng, 2, 2 * N_FLAGSHIP)
+    for seek_ms in (40.0, 60.0):
+        ws = WSOLAPitchShifter(192000.0, pitch_ratio=2.0 ** (3 / 12.0),
+                               sequence_ms=120.0, overlap_ms=60.0,
+                               seek_window_ms=seek_ms)
+        assert w1mod.plan(ws.seek, ws.overlap, 4)[2]
+        w1_cases.append((f"192 kHz +3 (seq 120, ov 60, seek {seek_ms:.0f} ms), "
+                         f"tiled", ws, x192_np))
     for dt in dtypes:
-        for label, ws in (("music preset +3", music(3)), ("music preset -4", music(-4)),
-                          ("music preset +12", music(12)),
-                          ("pitch-time node +3 (seq 40, ov 10, seek 15 ms)", node_ws)):
-            rs, edge, tail0, n_ext = ws.plan(N_FLAGSHIP, 1.0 / ws.pitch_ratio)
-            x2 = torch.nn.functional.pad(on(x8_np, dt), (0, n_ext - N_FLAGSHIP))
+        for label, ws, xw in w1_cases:
+            chans, n_w = xw.shape
+            rs, edge, tail0, n_ext = ws.plan(n_w, 1.0 / ws.pitch_ratio)
+            x2 = torch.nn.functional.pad(on(xw, dt), (0, n_ext - n_w))
             args = (x2, w1mod.energy_prefix(x2), rs, edge, ws.overlap, ws.seek,
                     ws.sequence - ws.overlap, tail0)
             s_k = w1mod.wsola_search(*args)
@@ -2263,7 +2291,7 @@ def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
             # the smallest relative gap between the best and the second-best
             # normalised score along the kernel's walk (loud, non-boundary
             # steps): a float32 flip needs a gap near 1e-6
-            tail = torch.full((CHANNELS,), tail0, dtype=torch.int64, device=dev)
+            tail = torch.full((chans,), tail0, dtype=torch.int64, device=dev)
             gaps = []
             for s, a in enumerate(rs.tolist()):
                 score, norm2 = w1mod.step_scores(x2, args[1], a, tail, ws.overlap,
@@ -2275,8 +2303,10 @@ def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
                 tail = s_k[s].long() + (ws.sequence - ws.overlap)
             gap = float(torch.cat(gaps).min())
             ok = equal and again
-            print(f"voice check wsola_search {dname(dt)} {label} {CHANNELS}x"
-                  f"{N_FLAGSHIP} (S={len(rs)}, seek {ws.seek}, ov {ws.overlap}): "
+            tiled = w1mod.plan(ws.seek, ws.overlap, x2.element_size())[2]
+            print(f"voice check wsola_search {dname(dt)} {label} {chans}x"
+                  f"{n_w} (S={len(rs)}, seek {ws.seek}, ov {ws.overlap}, "
+                  f"cluster {w1mod.CLUSTER}, {'tiled' if tiled else 'staged'}): "
                   f"starts equal to the plain version on the card {equal}, second "
                   f"call equal {again}, smallest best/second score gap "
                   f"{gap:.3e} (relative) {'ok' if ok else 'FAILED'}")
@@ -2593,6 +2623,20 @@ def voice_phase(torch, dev, gpu, kernels, plain_calls, bqmod, envscan,
               f"{100 * k['bound_ms'] / k['ms']:.1f}% of the kernel), chain bound "
               f"{cb:.6f} ms ({how} / {mhz:.0f} MHz, {100 * cb / k['ms']:.1f}% of "
               f"the kernel), plain {k['plain_ms']:.4f} ms, library none ({gpu})")
+    # W1 at the music preset's other two shifts, beside their chain bounds
+    for label in ("music preset -4", "music preset +12"):
+        x2w, csqw, rsw, edgew, ovw, seekw, flatw, tailw = w1_args[(label, torch.float32)]
+        gw = (torch.as_tensor(np.asarray(rsw, np.int32), device=dev),
+              torch.as_tensor(np.asarray(edgew, np.uint8), device=dev))
+        ms = graph_ms(torch, lambda: w1mod.launch(x2w, csqw, *gw, ovw, seekw, flatw,
+                                                  tailw), 20)
+        cb = len(rsw) * ovw * add_cycles / mhz * 1e-3
+        kernels["wsola_search"].setdefault("ms_other_shifts", {})[label] = ms
+        print(f"time wsola_search per WSOLA call, {label}, {x2w.shape[0]} x "
+              f"{N_FLAGSHIP} float32 ({len(rsw)} segments, {int(np.sum(edgew))} at "
+              f"the boundary): kernel {ms:.4f} ms (graph replay), chain bound "
+              f"{cb:.6f} ms ({len(rsw)} segments x {ovw} steps x {add_cycles:.1f} "
+              f"cycles / {mhz:.0f} MHz, {100 * cb / ms:.1f}% of the kernel) ({gpu})")
     for name in names:
         kernels[name]["launches"] = sum(kernels[name]["by_path"].values())
     print(f"voice launches by path: "

@@ -21,6 +21,8 @@ No JAX here: the plain versions are the references, and
 tests/test_torch_grad.py holds those to `jax.grad`.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import numpy as np
 import pytest
 import torch

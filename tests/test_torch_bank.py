@@ -19,6 +19,8 @@ Tolerances:
   bit-equal.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import functools
 
 import jax
@@ -36,6 +38,7 @@ from algodsp_tpu_torch.filters.design import butterworth_hp, butterworth_lp
 from algodsp_tpu_torch.ops import cascade as tcasc
 from algodsp_tpu_torch.ops import linrec
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 
@@ -74,13 +77,23 @@ _SOS = np.stack([np.concatenate([butterworth_lp(hi, 4, SR),
                                 (7000.0, 9000.0))])
 
 
+@functools.lru_cache(maxsize=None)
+def _cascade_banded_jax(dtype):
+    """JAX's banded cascade engine (output, state) from s0, shared by the
+    dtype cases."""
+    x = _x((2, 3, 1024), 1)
+    s0 = _x((2, 3, 2 * _SOS.shape[1] + 2), 2) * 0.1
+    run_j = ref_jit(lambda v, s: jcasc.cascade_apply_blocked_banded(
+        v, _SOS, s0=s, return_state=True))
+    return tuple(np.asarray(a) for a in run_j(jnp.asarray(x, dtype),
+                                              jnp.asarray(s0, dtype)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_cascade_banded_engine_matches_jax(dtype):
     x = _x((2, 3, 1024), 1)
     s0 = _x((2, 3, 2 * _SOS.shape[1] + 2), 2) * 0.1
-    run_j = jax.jit(lambda v, s: jcasc.cascade_apply_blocked_banded(
-        v, _SOS, s0=s, return_state=True))
-    y64, s64 = (np.asarray(a) for a in run_j(jnp.asarray(x), jnp.asarray(s0)))
+    y64, s64 = _cascade_banded_jax(jnp.float64)
     y, s = tcasc.cascade_apply_blocked_banded(_t(x, getattr(torch, dtype)), _SOS,
                                               s0=_t(s0), return_state=True)
     assert y.dtype == getattr(torch, dtype)
@@ -91,8 +104,7 @@ def test_cascade_banded_engine_matches_jax(dtype):
         y_ref = np.asarray(jcasc.cascade_apply_blocked_banded(jnp.asarray(x), _SOS))
         assert snr_db(y_ref, y_only.numpy()) >= 200
     else:
-        y32, s32 = (np.asarray(a) for a in run_j(jnp.asarray(x, jnp.float32),
-                                                  jnp.asarray(s0, jnp.float32)))
+        y32, s32 = _cascade_banded_jax(jnp.float32)
         _f32_ok(y64, y32, y.numpy())
         _f32_ok(s64, s32, s.numpy())
     with pytest.raises(ValueError):
@@ -101,23 +113,32 @@ def test_cascade_banded_engine_matches_jax(dtype):
         tcasc.cascade_apply_blocked_banded(_t(x[:, :2]), _SOS)
 
 
+@functools.lru_cache(maxsize=None)
+def _linrec_banded_jax(dtype):
+    """JAX's banded AR(2) engine from nonzero initial conditions, shared
+    by the dtype cases."""
+    a1, a2 = _SOS[:, 1, 3], _SOS[:, 1, 4]
+    jk = jlin.ar2_kernels(a1, a2)
+    run_j = ref_jit(lambda v, a, b: jlin.ar2_apply_blocked_banded(v, jk, a, b))
+    return np.asarray(run_j(*(jnp.asarray(v, dtype) for v in (
+        _x((2, 3, 768), 3), _x((2, 3), 4), _x((2, 3), 5)))))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_linrec_banded_engine_matches_jax(dtype):
     """One section a band (the second LP section: modal in the 40 Hz band)
     from nonzero initial conditions."""
     a1, a2 = _SOS[:, 1, 3], _SOS[:, 1, 4]
-    jk, tk = jlin.ar2_kernels(a1, a2), linrec.ar2_kernels(a1, a2)
+    tk = linrec.ar2_kernels(a1, a2)
     f = _x((2, 3, 768), 3)
     y1, y2 = _x((2, 3), 4), _x((2, 3), 5)
-    run_j = jax.jit(lambda v, a, b: jlin.ar2_apply_blocked_banded(v, jk, a, b))
-    y64 = np.asarray(run_j(jnp.asarray(f), jnp.asarray(y1), jnp.asarray(y2)))
+    y64 = _linrec_banded_jax(jnp.float64)
     tdt = getattr(torch, dtype)
     y = linrec.ar2_apply_blocked_banded(_t(f, tdt), tk, _t(y1, tdt), _t(y2, tdt))
     if dtype == "float64":
         assert snr_db(y64, y.numpy()) >= 200
     else:
-        y32 = np.asarray(run_j(*(jnp.asarray(v, jnp.float32) for v in (f, y1, y2))))
-        _f32_ok(y64, y32, y.numpy())
+        _f32_ok(y64, _linrec_banded_jax(jnp.float32), y.numpy())
     with pytest.raises(ValueError):
         linrec.ar2_apply_blocked_banded(_t(f[..., :2, :]), tk, _t(y1[:, :2]),
                                         _t(y2[:, :2]))
@@ -129,20 +150,25 @@ def _banks():
             bank.Bank.octave(3, SR, order=4, lower_hz=25.0, upper_hz=16000.0))
 
 
+@functools.lru_cache(maxsize=None)
+def _bank_jax(dtype):
+    """JAX's bank output, shared by the dtype cases."""
+    return np.asarray(ref_jit(_banks()[0].process)(jnp.asarray(_x((2, 2048), 6), dtype)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_bank_process_matches_jax(dtype):
     jb, tb = _banks()
     np.testing.assert_array_equal(tb.centers, jb.centers)
     np.testing.assert_array_equal(tb.chain.sos, jb.chain.sos)
     x = _x((2, 2048), 6)
-    y64 = np.asarray(jax.jit(jb.process)(jnp.asarray(x)))
+    y64 = _bank_jax(jnp.float64)
     y = tb.process(_t(x, getattr(torch, dtype)))
     assert y.shape == (2, tb.num_bands, 2048)
     if dtype == "float64":
         assert snr_db(y64, y.numpy()) >= 200
     else:
-        y32 = np.asarray(jax.jit(jb.process)(jnp.asarray(x, jnp.float32)))
-        _f32_bands_ok(y64, y32, y.numpy())
+        _f32_bands_ok(y64, _bank_jax(jnp.float32), y.numpy())
 
 
 def test_bank_stream_ragged_blocks_matches_jax():
@@ -150,7 +176,7 @@ def test_bank_stream_ragged_blocks_matches_jax():
     per-section path; the state carried across them matches JAX's."""
     jb, tb = _banks()
     x = _x((2, 1000), 7)
-    jstep = jax.jit(jb.process_stream)
+    jstep = ref_jit(jb.process_stream)
     js, ts = jb.init_state((2,), jnp.float64), tb.init_state((2,), torch.float64, "cpu")
     outs, jouts = [], []
     for a, b in ((0, 300), (300, 812), (812, 1000)):
@@ -166,6 +192,19 @@ def test_bank_stream_ragged_blocks_matches_jax():
     assert custom.num_bands == 2
 
 
+@functools.lru_cache(maxsize=None)
+def _octave_analyzer_jax(dtype):
+    """JAX's analyzer over the two streamed blocks: (state, bands,
+    levels) after the second, shared by the dtype cases."""
+    ja = jbank.OctaveAnalyzer(3, SR, lower_hz=25.0)
+    x = _x((2, 1024), 8)
+    jstep = ref_jit(ja.process)
+    js = ja.init_state((2,), dtype)
+    for blk in (x[:, :512], x[:, 512:]):
+        js, jbands, jlev = jstep(js, jnp.asarray(blk, dtype))
+    return jax.tree_util.tree_map(np.asarray, js), np.asarray(jbands), np.asarray(jlev)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_octave_analyzer_matches_jax(dtype):
     """Two streamed 512-sample blocks (the chain's block) of 2 channels:
@@ -174,14 +213,11 @@ def test_octave_analyzer_matches_jax(dtype):
     ta = bank.OctaveAnalyzer(3, SR, lower_hz=25.0)
     assert ta.attack_coeff == ja.attack_coeff
     assert ta.release_coeff == ja.release_coeff
-    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tdt = getattr(torch, dtype)
     x = _x((2, 1024), 8)
-    jstep = jax.jit(ja.process)
-    js, ts = ja.init_state((2,), jnp.float64), ta.init_state((2,), tdt, "cpu")
-    js32 = ja.init_state((2,), jdt)
+    js, jbands, jlev = _octave_analyzer_jax(jnp.float64)
+    ts = ta.init_state((2,), tdt, "cpu")
     for blk in (x[:, :512], x[:, 512:]):
-        js, jbands, jlev = jstep(js, jnp.asarray(blk))
-        js32, jb32, jl32 = jstep(js32, jnp.asarray(blk, jdt))
         ts, tbands, tlev = ta.process(ts, _t(blk, tdt))
     assert tbands.dtype == tdt and tlev.shape == (2, ta.bank.num_bands)
     if dtype == "float64":
@@ -192,9 +228,9 @@ def test_octave_analyzer_matches_jax(dtype):
         np.testing.assert_allclose(ts["bank"].numpy(), np.asarray(js["bank"]),
                                    atol=1e-10)
     else:
-        _f32_bands_ok(np.asarray(jbands), np.asarray(jb32), tbands.numpy())
-        _f32_ok(np.asarray(js["env"]), np.asarray(js32["env"]),
-                ts["env"].numpy())
+        js32, jb32, _ = _octave_analyzer_jax(jnp.float32)
+        _f32_bands_ok(jbands, jb32, tbands.numpy())
+        _f32_ok(js["env"], js32["env"], ts["env"].numpy())
 
 
 @pytest.mark.skipif(not native.available(), reason="native library not built")
@@ -236,6 +272,14 @@ def test_multirate_helpers_and_layout_match_jax():
         ta.analyze(_t(_x((2, 100), 0)))
 
 
+@functools.lru_cache(maxsize=None)
+def _multirate_jax(dtype):
+    """JAX's multirate analysis of the test signal, shared by the dtype
+    cases."""
+    ja = jbank.MultirateOctaveAnalyzer(3, SR, lower_hz=25.0, upper_hz=16000.0)
+    return np.asarray(ref_jit(ja.analyze)(jnp.asarray(_x((2, 8192), 10), dtype)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_multirate_analyzer_matches_jax(dtype):
     """1/3-octave, order 10, 25 Hz - 16 kHz: every decimation group, at
@@ -248,8 +292,7 @@ def test_multirate_analyzer_matches_jax(dtype):
     ta = bank.MultirateOctaveAnalyzer(3, SR, **kw)
     x = _x((2, 8192), 10)
     tdt = getattr(torch, dtype)
-    jan = jax.jit(ja.analyze)
-    p64 = np.asarray(jan(jnp.asarray(x)))
+    p64 = _multirate_jax(jnp.float64)
     p = ta.analyze(_t(x, tdt))
     assert p.dtype == tdt and p.shape == (2, ta.num_bands)
     if dtype == "float64":
@@ -259,8 +302,7 @@ def test_multirate_analyzer_matches_jax(dtype):
         _, p2 = ta.process(st, _t(x[:, 4096:]))
         np.testing.assert_allclose(p2.numpy(), p.numpy(), rtol=1e-9, atol=1e-12)
     else:
-        p32 = np.asarray(jan(jnp.asarray(x, jnp.float32)))
-        _f32_ok(p64, p32, p.numpy())
+        _f32_ok(p64, _multirate_jax(jnp.float32), p.numpy())
 
 
 def test_banded_engines_ignore_a_lowered_precision():

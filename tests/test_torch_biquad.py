@@ -12,6 +12,8 @@ Tolerances:
   >= 120 dB against float64.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import functools
 
 import numpy as np
@@ -28,6 +30,7 @@ from algodsp_tpu_torch.filters import biquad as tbq
 from algodsp_tpu_torch.ops import linrec
 from algodsp_tpu_torch.ops.biquad_cascade import biquad_cascade, biquad_cascade_plain
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 
@@ -39,9 +42,9 @@ CHAINS = {
 }
 # one compiled JAX program per chain (eager dispatch compiles every op
 # on first use, which costs more than a jit of the whole call)
-_JAX_BLOCKED = {name: jax.jit(functools.partial(jc.process, mode="blocked"))
+_JAX_BLOCKED = {name: ref_jit(functools.partial(jc.process, mode="blocked"))
                 for name, jc in CHAINS.items()}
-_JAX_STREAM = {name: jax.jit(jc.process_stream) for name, jc in CHAINS.items()}
+_JAX_STREAM = {name: ref_jit(jc.process_stream) for name, jc in CHAINS.items()}
 
 
 def _chains():

@@ -16,6 +16,8 @@ Tolerances (SNR against the JAX float64 output):
 - state round trips, mode selection and pole-zero factoring exactly.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ from algodsp_tpu_torch.filters.design.rbj import highpass, low_shelf, peak
 from algodsp_tpu_torch.ops import cascade as tcasc
 from algodsp_tpu_torch.ops import linrec
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, N, B = 2, 1024, 128
@@ -54,7 +57,7 @@ def _x(seed=0, dtype=np.float64, n=N):
 
 
 def _jax_apply(sos, x, s0=None, block=B):
-    fn = jax.jit(lambda x_, s_: jcasc.cascade_apply_blocked(
+    fn = ref_jit(lambda x_, s_: jcasc.cascade_apply_blocked(
         x_, sos, block=block, s0=s_, return_state=True))
     y, s = fn(jnp.asarray(x), None if s0 is None else jnp.asarray(s0))
     return np.asarray(y), np.asarray(s)
@@ -127,7 +130,7 @@ def test_process_cascade_streams_like_one_call_and_jax():
     y_stream = torch.cat(ys, dim=-1).numpy()
     y_one = tc.process(torch.as_tensor(x), mode="cascade").numpy()
     assert snr_db(y_one, y_stream) >= 250
-    run = jax.jit(lambda x_, s_: jc.process_cascade(x_, state=s_,
+    run = ref_jit(lambda x_, s_: jc.process_cascade(x_, state=s_,
                                                     return_state=True))
     y_j, st_j = run(jnp.asarray(x), jnp.zeros((C, jc.num_runtime_sections, 4)))
     assert snr_db(np.asarray(y_j), y_stream) >= 200
@@ -147,7 +150,7 @@ def test_process_cascade_bulk_block_and_gain():
     tc, jc = BiquadChain(sos, gain=0.7), JChain(sos, gain=0.7)
     y = tc.process_cascade(torch.as_tensor(x))
     assert tc._sos_bulk256.shape == linrec.condition_sos(sos, 256).shape
-    y_j = jax.jit(jc.process_cascade)(jnp.asarray(x))
+    y_j = ref_jit(jc.process_cascade)(jnp.asarray(x))
     assert snr_db(np.asarray(y_j), y.numpy()) >= 200
 
 
@@ -165,7 +168,7 @@ def test_exact_dispatch_takes_the_cascade_engine_on_block_multiples(monkeypatch)
         taken.clear()
         y = tc.process(torch.as_tensor(x), exact=True)
         assert taken == [engine] and y.dtype == torch.float32
-        y_j = jax.jit(lambda x_: jc.process(x_, exact=True))(jnp.asarray(x))
+        y_j = ref_jit(lambda x_: jc.process(x_, exact=True))(jnp.asarray(x))
         y_64 = tc.process(torch.as_tensor(x, dtype=torch.float64), mode="scan")
         assert snr_db(y_64.numpy(), y.numpy()) >= 140
         assert snr_db(np.asarray(y_j), y.numpy()) >= 140
@@ -231,7 +234,7 @@ def test_impulse_response_dtype():
                            (torch.float32, jnp.float32)):
             h = tc.impulse_response(n, dtype=t_dt)
             imp = jnp.zeros((n,), j_dt).at[0].set(1.0)
-            h_j = np.asarray(jax.jit(lambda x_: jc.process(x_, mode=mode))(imp))
+            h_j = np.asarray(ref_jit(lambda x_: jc.process(x_, mode=mode))(imp))
             assert h.dtype == h_j.dtype and h.shape == (n,)
             assert snr_db(h_j, h) >= (200 if t_dt == torch.float64 else 120)
 

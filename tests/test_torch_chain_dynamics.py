@@ -14,6 +14,8 @@ evaluation orders through the nonlinear detectors); crossovers in
 float64 >= 200 dB.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import json
 
 import jax
@@ -33,6 +35,7 @@ from algodsp_tpu_torch.chain.registry import NOT_PORTED
 from algodsp_tpu_torch.chain.registry import Context as TContext
 from algodsp_tpu_torch.filters import Crossover, MultiBand
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, BLOCK, BLOCKS = 4, 512, 4
@@ -93,7 +96,7 @@ def test_dynamics_graph_matches_jax(graph, dtype):
     jc, tc = JChain(SR, block_size=BLOCK), TChain(SR, block_size=BLOCK)
     assert tc.load_graph(raw) == jc.load_graph(raw) == []
     x = _x().astype(dtype)
-    _, y_j = jax.jit(jc.process_blocks)(
+    _, y_j = ref_jit(jc.process_blocks)(
         jc.init_state((C,), jnp.dtype(dtype)), jnp.asarray(x))
     _, y_t = tc.process_blocks(tc.init_state((C,), getattr(torch, dtype), "cpu"),
                                torch.as_tensor(x))
@@ -110,7 +113,7 @@ def test_split_freq_ports():
     x = _x(1)
     st, (lo, hi) = rt.process(rt.init_state((C,), torch.float64, "cpu"),
                               torch.as_tensor(x), None)
-    _, (lo_j, hi_j) = jax.jit(lambda st_, x_: rj.process(st_, x_, None))(
+    _, (lo_j, hi_j) = ref_jit(lambda st_, x_: rj.process(st_, x_, None))(
         rj.init_state((C,), jnp.float64), jnp.asarray(x))
     assert snr_db(np.asarray(lo_j), lo.numpy()) >= 200
     assert snr_db(np.asarray(hi_j), hi.numpy()) >= 200
@@ -135,7 +138,7 @@ def test_crossovers_match_jax():
         tx, jx = Crossover(700.0, order, SR), JCrossover(700.0, order, SR)
         np.testing.assert_array_equal(tx.hp.sos, jx.hp.sos)
         lo, hi = tx.process(torch.as_tensor(x))
-        lo_j, hi_j = jax.jit(jx.process)(jnp.asarray(x))
+        lo_j, hi_j = ref_jit(jx.process)(jnp.asarray(x))
         assert snr_db(np.asarray(lo_j), lo.numpy()) >= 200
         assert snr_db(np.asarray(hi_j), hi.numpy()) >= 200
     tm, jm = MultiBand([250.0, 3000.0], 4, SR), JMultiBand([250.0, 3000.0], 4, SR)
@@ -146,7 +149,7 @@ def test_crossovers_match_jax():
     for part in (x[:, :half], x[:, half:]):
         st, b = tm.process_stream(st, torch.as_tensor(part))
         bands.append(b)
-    bands_j = jax.jit(jm.process)(jnp.asarray(x))
+    bands_j = ref_jit(jm.process)(jnp.asarray(x))
     for k in range(3):
         got = torch.cat([bands[0][k], bands[1][k]], dim=-1).numpy()
         assert snr_db(np.asarray(bands_j[k]), got) >= 200

@@ -13,6 +13,9 @@ slow poles). The bit crusher leads WAVE_GRAPH, so it quantises the
 chain's input itself and no step flips upstream of it.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
+import functools
 import json
 
 import jax
@@ -32,6 +35,7 @@ from algodsp_tpu_torch.chain import params as tparams
 from algodsp_tpu_torch.chain.registry import NOT_PORTED
 from algodsp_tpu_torch.chain.registry import Context as TContext
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit, settled_state
 
 SR = 48000.0
 C, BLOCK, BLOCKS = 2, 512, 3
@@ -77,8 +81,10 @@ def _run(graph, dtype):
     jc, tc = JChain(SR, block_size=BLOCK), TChain(SR, block_size=BLOCK)
     assert jc.load_graph(raw) == tc.load_graph(raw) == []
     x = _x().astype(dtype)
-    jp = jax.jit(jc.process)
-    sj, yj = jc.init_state((C,), jnp.dtype(dtype)), []
+    jp = ref_jit(jc.process)
+    sj = settled_state(jc.process, jc.init_state((C,), jnp.dtype(dtype)),
+                       jnp.asarray(x[:, :BLOCK]))
+    yj = []
     for b in range(BLOCKS):
         sj, y = jp(sj, jnp.asarray(x[:, b * BLOCK:(b + 1) * BLOCK]))
         yj.append(np.asarray(y))
@@ -89,22 +95,33 @@ def _run(graph, dtype):
     return np.concatenate(yj, axis=-1), yt.numpy(), first, tc, x
 
 
-@pytest.mark.parametrize("graph", [MOD_GRAPH, WAVE_GRAPH], ids=["mod", "wave"])
-def test_graph_matches_jax(graph):
+@functools.lru_cache(maxsize=None)
+def _run64(name):
+    """`_run` of a graph in float64, once a graph for both its cases."""
+    return _run({"mod": MOD_GRAPH, "wave": WAVE_GRAPH}[name], "float64")
+
+
+@pytest.mark.parametrize("case", ["mod", "wave", "mod-float32", "wave-float32"])
+def test_graph_matches_jax(case):
     """The graph streamed in 512-sample blocks, and the port continuing
     from JAX's state after the first block: the state (the Flanger's
     int32 counter, the bit crusher's counter, the scalar LFO phases,
     nested filter and limiter states) crosses by
-    `convert.state_from_numpy`."""
-    j64, t64, first, tc, x = _run(graph, "float64")
+    `convert.state_from_numpy`. The float32 cases hold the port's
+    float32 stream to JAX's float64 one (the float64 cases' run)."""
+    name, _, dtype = case.partition("-")
+    j64, t64, first, tc, x = _run64(name)
+    if dtype == "float32":
+        j32, t32, _, _, _ = _run({"mod": MOD_GRAPH, "wave": WAVE_GRAPH}[name],
+                                 "float32")
+        assert t32.dtype == np.float32
+        assert snr_db(j64, t32) >= snr_db(j64, j32) - 6.0
+        return
     assert t64.dtype == np.float64 and snr_db(j64, t64) >= 200
     st = convert.state_from_numpy(first, "cpu")
     assert set(st) == set(tc.init_state((C,), torch.float64, "cpu"))
     _, y_rest = tc.process_blocks(st, torch.as_tensor(x[:, BLOCK:]))
     assert snr_db(j64[:, BLOCK:], y_rest.numpy()) >= 200
-    j32, t32, _, _, _ = _run(graph, "float32")
-    assert t32.dtype == np.float32
-    assert snr_db(j64, t32) >= snr_db(j64, j32) - 6.0
 
 
 def _same(a, b, where):

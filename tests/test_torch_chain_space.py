@@ -14,6 +14,9 @@ JAX package's own fused-against-unfused SNR (the fusion pass truncates
 the folded impulse response at -150 dB of its peak: 138 dB here).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
+import functools
 import json
 
 import jax
@@ -30,6 +33,7 @@ from algodsp_tpu_torch.chain import default_registry as t_registry
 from algodsp_tpu_torch.chain.registry import NOT_PORTED
 from algodsp_tpu_torch.chain.registry import Context as TContext
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, BLOCK, BLOCKS = 2, 512, 6
@@ -59,6 +63,13 @@ def _x(seed=0):
     return rng.standard_normal((C, n)) * burst
 
 
+@functools.lru_cache(maxsize=None)
+def _run_space(dtype, fuse=False):
+    """SPACE_GRAPH's run, shared by the tests that compare it (the
+    arrays are only read)."""
+    return _run(SPACE_GRAPH, dtype, fuse)
+
+
 def _run(graph, dtype, fuse=False):
     raw = json.dumps(graph)
     jc, tc = JChain(SR, block_size=BLOCK), TChain(SR, block_size=BLOCK)
@@ -66,7 +77,7 @@ def _run(graph, dtype, fuse=False):
     rt = tc.load_graph(raw, auto_fuse=fuse)
     assert rj == rt
     x = _x().astype(dtype)
-    _, yj = jax.jit(jc.process_blocks)(jc.init_state((C,), jnp.dtype(dtype)),
+    _, yj = ref_jit(jc.process_blocks)(jc.init_state((C,), jnp.dtype(dtype)),
                                         jnp.asarray(x))
     _, yt = tc.process_blocks(tc.init_state((C,), getattr(torch, dtype), "cpu"),
                               torch.as_tensor(x))
@@ -74,10 +85,10 @@ def _run(graph, dtype, fuse=False):
 
 
 def test_space_graph_matches_jax():
-    j64, t64, report = _run(SPACE_GRAPH, "float64")
+    j64, t64, report = _run_space("float64")
     assert report == [] and t64.dtype == np.float64
     assert snr_db(j64, t64) >= 200
-    j32, t32, _ = _run(SPACE_GRAPH, "float32")
+    j32, t32, _ = _run_space("float32")
     assert t32.dtype == np.float32
     assert snr_db(j64, t32) >= snr_db(j64, j32) - 6.0
 
@@ -85,10 +96,10 @@ def test_space_graph_matches_jax():
 def test_fused_space_graph_matches_jax_and_unfused():
     """The fusion pass folds the low-cut and the delay's echo train into
     one FIR, as the JAX chain does."""
-    j64, t64, report = _run(SPACE_GRAPH, "float64", fuse=True)
+    j64, t64, report = _run_space("float64", fuse=True)
     assert [r[0] for r in report] == [["lowcut", "echo"]]
     assert snr_db(j64, t64) >= 200
-    j_unfused, t_unfused, _ = _run(SPACE_GRAPH, "float64")
+    j_unfused, t_unfused, _ = _run_space("float64")
     assert snr_db(t_unfused, t64) >= snr_db(j_unfused, j64) - 1.0
 
 

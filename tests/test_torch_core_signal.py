@@ -18,6 +18,8 @@ Tolerances:
 - host helpers (testutil, config, next_pow2): equal.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from algodsp_tpu import testutil as jtu
 from algodsp_tpu_torch import core, signal, testutil
 from algodsp_tpu_torch.core import Buffer, Pool, ProcessorConfig
 from algodsp_tpu_torch.signal import generate
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 
@@ -231,7 +234,7 @@ def test_normalize_clip_remove_dc_match_jax():
 def test_envelope_follower_matches_jax():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 700))
-    ref = np.asarray(jax.jit(lambda v: jsig.envelope_follower(v, 0.3, 0.01))(
+    ref = np.asarray(ref_jit(lambda v: jsig.envelope_follower(v, 0.3, 0.01))(
         jnp.asarray(x)))
     np.testing.assert_allclose(signal.envelope_follower(_t(x), 0.3, 0.01).numpy(),
                                ref, atol=1e-12)

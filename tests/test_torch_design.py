@@ -8,6 +8,8 @@ their test counts, and a file with fewer tests than
 tests/test_parallel.py (by far the longest file) leaves that file's
 place in the queue, and so the suite's wall time, unchanged."""
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import numpy as np
 import pytest
 

@@ -4,6 +4,8 @@ bit-identical (they are copies, so any difference is a copying fault),
 and a parameter set that one side refuses the other must refuse with
 the same error type name and message, over a small grid."""
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import numpy as np
 import pytest
 

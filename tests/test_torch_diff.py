@@ -8,6 +8,8 @@ Tolerances: the same maths in float64 agrees to rtol 1e-10 (values and
 gradients; the designers' coefficients to 1e-12); runtimes to >= 200 dB.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from algodsp_tpu import diff as jdiff
 from algodsp_tpu.filters import biquad as jbiquad, design as jd
 from algodsp_tpu_torch import diff
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 KINDS = ["lowpass", "highpass", "bandpass", "notch", "allpass", "peak",
@@ -40,7 +43,7 @@ def test_designer_matches_jax(kind):
     j_loss = lambda *p: jnp.sum(j_fn(*p, SR) * w)
     argnums = tuple(range(len(params)))
     want = np.asarray(j_fn(*params, SR))
-    g_want = jax.jit(jax.grad(j_loss, argnums=argnums))(*params)
+    g_want = ref_jit(jax.grad(j_loss, argnums=argnums))(*params)
     ps = [_t(p, grad=True) for p in params]
     got = t_fn(*ps, SR)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-12,
@@ -103,7 +106,7 @@ def test_sos_response_and_magnitude_match_jax():
     m = diff.sos_magnitude_db(st, freqs, SR)
     (m * _t(w)).sum().backward()
     j_m = jdiff.sos_magnitude_db(sos, freqs, SR)
-    g = jax.jit(jax.grad(lambda s: jnp.sum(
+    g = ref_jit(jax.grad(lambda s: jnp.sum(
         jdiff.sos_magnitude_db(s, freqs, SR) * w)))(jnp.asarray(sos))
     np.testing.assert_allclose(m.detach().numpy(), np.asarray(j_m), rtol=1e-10)
     np.testing.assert_allclose(st.grad.numpy(), np.asarray(g), rtol=1e-10)
@@ -122,8 +125,8 @@ def test_sos_filter_matches_jax(rng):
         y, new = jdiff.sos_filter(s, x, st)
         return jnp.sum(y * wy) + jnp.sum(new * ws)
 
-    y_j, st_j = jax.jit(jdiff.sos_filter)(sos, x, st0)
-    g_j = jax.jit(jax.grad(j_loss, argnums=(0, 1, 2)))(sos, x, st0)
+    y_j, st_j = ref_jit(jdiff.sos_filter)(sos, x, st0)
+    g_j = ref_jit(jax.grad(j_loss, argnums=(0, 1, 2)))(sos, x, st0)
     args = [_t(a, grad=True) for a in (sos, x, st0)]
     y, st = diff.sos_filter(*args)
     assert snr_db(np.asarray(y_j), y.detach().numpy()) >= 200
@@ -154,7 +157,7 @@ def test_fir_filter_matches_jax(rng):
                                np.asarray(jdiff.fir_filter(taps, x)),
                                rtol=1e-10, atol=1e-12)
     (y * _t(w)).sum().backward()
-    g_t, g_x = jax.jit(jax.grad(lambda t, v: jnp.sum(
+    g_t, g_x = ref_jit(jax.grad(lambda t, v: jnp.sum(
         jdiff.fir_filter(t, v) * w), argnums=(0, 1)))(jnp.asarray(taps),
                                                       jnp.asarray(x))
     np.testing.assert_allclose(tt.grad.numpy(), np.asarray(g_t), rtol=1e-10)
@@ -190,7 +193,7 @@ def test_short_eq_fit():
         return ((mag(build(m, raw), freqs, SR) - tgt) ** 2).mean()
 
     raw = torch.zeros(6, dtype=torch.float64, requires_grad=True)
-    g_j = jax.jit(jax.grad(lambda r: loss(_J, jdiff.sos_magnitude_db, r,
+    g_j = ref_jit(jax.grad(lambda r: loss(_J, jdiff.sos_magnitude_db, r,
                                           jnp.asarray(target.numpy()))))(
         jnp.zeros(6))
     l0 = loss(_T, diff.sos_magnitude_db, raw, target)

@@ -15,6 +15,8 @@ carries it on); the golden's codes exactly equal; the Q1 model bit for
 bit.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from algodsp_tpu.dither import quantizer as jq
 from algodsp_tpu_torch import dither as tdither
 from algodsp_tpu_torch.dither import quantizer as tq
 from algodsp_tpu_torch.ops import dither as q1
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, N = 3, 2048
@@ -58,7 +61,7 @@ def _x(seed=108):
 
 def _codes(qj, qt, x, dtype):
     nz = _engine_noise(qj, x.shape, dtype)
-    sj, cj = jax.jit(qj.process_integer)(qj.init_state((C,), jnp.dtype(dtype)),
+    sj, cj = ref_jit(qj.process_integer)(qj.init_state((C,), jnp.dtype(dtype)),
                                          jnp.asarray(x.astype(dtype)))
     st = qt.init_state((C,), getattr(torch, dtype), "cpu")
     s2, ct = qt.process_integer(st, torch.as_tensor(x.astype(dtype)),

@@ -7,9 +7,12 @@ envelope trajectory — the bar the JAX package holds its own envelope
 kernel to (tests/test_pallas.py) — and states equal to float32 roundoff.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import dataclasses
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -27,6 +30,7 @@ from algodsp_tpu_torch.effects.dynamics import (
 from algodsp_tpu_torch.ops.envscan import (
     ENV_MAX_SWEEPS, chunk_plan, envelope_scan, envelope_scan_plain)
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, N = 2, 1024
@@ -75,15 +79,16 @@ def test_compressor_streams_with_state():
     x = _signal(seed=1)
     st_j = jc.init_state((C,))
     st_t = tc.init_state((C,), device="cpu")
+    jp = ref_jit(jc.process)
     for half in (x[:, :N // 2], x[:, N // 2:]):
-        st_j, y_j = jc.process(st_j, jnp.asarray(half))
+        st_j, y_j = jp(st_j, jnp.asarray(half))
         st_t, y_t = tc.process(st_t, torch.from_numpy(half))
         assert snr_db(np.asarray(y_j), y_t.numpy()) >= 100
     _states_close(st_j, st_t)
     state = convert.state_from_numpy({k: np.asarray(v) for k, v in st_j.items()},
                                      device="cpu")
     _, y_a = tc.process(state, torch.from_numpy(x))
-    _, y_b = jc.process(st_j, jnp.asarray(x))
+    _, y_b = jp(st_j, jnp.asarray(x))
     assert snr_db(np.asarray(y_b), y_a.numpy()) >= 100
 
 

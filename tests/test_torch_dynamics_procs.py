@@ -17,6 +17,8 @@ carried and is held to:
 The gate's hold counter and held samples equal the reference's exactly.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import dataclasses
 
 import jax
@@ -32,6 +34,7 @@ from algodsp_tpu_torch.effects import dynamics as TD
 from algodsp_tpu_torch.effects.dynamics.processors import gate_hold
 from algodsp_tpu_torch.ops import dynfb
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, N = 2, 1024
@@ -70,7 +73,7 @@ def _both(jp, tp, x, *, gain=False, call=None):
     state. Returns (port y, port gain or None, JAX states, port states)."""
     call = call or (lambda p, st, xb: p.process(st, xb, with_gain=True)
                     if gain else p.process(st, xb))
-    run = jax.jit(lambda st, xb: call(jp, st, xb))
+    run = ref_jit(lambda st, xb: call(jp, st, xb))
     half = x.shape[-1] // 2
     st_j = jp.init_state((C,), jnp.float64)
     st_t = tp.init_state((C,), torch.float64, "cpu")
@@ -131,7 +134,7 @@ def test_feedback_compressor(fb_scale):
     assert snr_db(y_gold, y[0]) > 120 and snr_db(g_gold, g[0]) > 120
     # float32 against JAX float32 (each rounds its own log2 and exp2)
     x32 = x.astype(np.float32)
-    _, y_j, g_j = jax.jit(lambda s, v: jc.process(s, v, with_gain=True))(
+    _, y_j, g_j = ref_jit(lambda s, v: jc.process(s, v, with_gain=True))(
         jc.init_state((C,), jnp.float32), jnp.asarray(x32))
     _, y_t, g_t = tc.process(tc.init_state((C,), torch.float32, "cpu"),
                              torch.as_tensor(x32), with_gain=True)
@@ -154,7 +157,7 @@ def test_feedback_plain_version_per_channel():
     env0, abs0 = np.array([0.0, 0.3, 2.0]), np.array([0.1, 0.0, 1.0])
     st_j = {"envelope": jnp.asarray(env0), "prev_abs": jnp.asarray(abs0),
             "prev_gain": jnp.ones(3)}
-    st_j, y_j, g_j = jax.jit(core_j.process)(st_j, jnp.asarray(x))
+    st_j, y_j, g_j = ref_jit(core_j.process)(st_j, jnp.asarray(x))
     y, g, env_f, abs_f = dynfb.dynamics_feedback_plain(
         torch.as_tensor(x), torch.as_tensor(env0), torch.as_tensor(abs0),
         core_t.feedback_params())
@@ -169,7 +172,7 @@ def test_feedback_plain_version_per_channel():
         _, yv, _ = core_j.process(core_j.init_state((3,), jnp.float64), v)
         return jnp.sum(yv * yv)
 
-    dx_j = jax.jit(jax.grad(loss_j))(jnp.asarray(xs))
+    dx_j = ref_jit(jax.grad(loss_j))(jnp.asarray(xs))
     xt = torch.as_tensor(xs).requires_grad_(True)
     _, yt, _ = core_t.process(core_t.init_state((3,), torch.float64, "cpu"), xt)
     (yt * yt).sum().backward()
@@ -215,7 +218,7 @@ def test_gate_hold_counter_and_held_samples():
         assert b["hold"].dtype == torch.int32
         np.testing.assert_array_equal(np.asarray(a["hold"]), b["hold"].numpy())
     # the held samples: unity gain where the expansion gain was below 1
-    run = jax.jit(lambda st, v: jp.process(st, v, with_gain=True))
+    run = ref_jit(lambda st, v: jp.process(st, v, with_gain=True))
     _, _, g_j = run(jp.init_state((C,), jnp.float64), jnp.asarray(x))
     np.testing.assert_array_equal(np.asarray(g_j) == 1.0, g == 1.0)
     st_gold, y_gold, g_gold = native.gate_hold(jp, x[0])
@@ -335,7 +338,7 @@ def test_zero_and_one_sample_blocks():
         assert y0.shape == (C, 0)
         _close(jax.tree.map(lambda t: t.numpy(), st_t), st0, bar=np.inf)
         st_j = jax.tree.map(lambda t: jnp.asarray(t.numpy()), st_t)
-        st1_j, y1_j = jax.jit(jp.process)(st_j, jnp.asarray(x[:, 4:5]))
+        st1_j, y1_j = ref_jit(jp.process)(st_j, jnp.asarray(x[:, 4:5]))
         st1_t, y1_t = tp.process(st0, torch.as_tensor(x[:, 4:5]))
         assert snr_db(np.asarray(y1_j), y1_t.numpy()) >= 200
         _close(st1_j, st1_t)

@@ -1,12 +1,18 @@
-"""NumPy models of the CUDA kernels' per-sample walks (`csrc/feedback.cu`:
-R1 Delay, R2 Freeverb, R3 FDN) against the port's plain versions on the
-CPU, the plain versions' gradients against `jax.grad` through the JAX
-package's scans, and the effects' validation errors.
+"""NumPy models of the CUDA kernels' walks (`csrc/feedback.cu`: R1
+Delay and R2 Freeverb per sample, R3 FDN a stretch at a time with its
+damping as a scan) against the port's plain versions on the CPU (R3 also
+against the jitted JAX FDNReverb), the plain versions' gradients against
+`jax.grad` through the JAX package's scans, and the effects' validation
+errors.
 
 Tolerances: the models float64 >= 200 dB, float32 >= 100 dB against the
 plain versions, whose blocked tiers sum in other orders; gradients in
 float64 >= 200 dB.
 """
+
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +28,7 @@ from algodsp_tpu_torch.effects.reverb import FDNReverb, Freeverb
 from algodsp_tpu_torch.effects.reverb import freeverb as freeverb_mod
 from algodsp_tpu_torch.ops import feedback
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C = 2
@@ -114,56 +121,94 @@ def _r2_model(fv, combs, fstore, allp, step, x):
 
 
 def _r3_model(rv, lines, fst, lfo, step, x, inp):
-    """csrc/feedback.cu::fdn_kernel: full blocks in the blocked form (phase
-    from the block's start, linear read index), the tail per sample
-    (accumulated phase, ring index); the damping walks in order."""
+    """csrc/feedback.cu::fdn_kernel: the call in stretches, each whole
+    block of the blocked tier (phase from the block's start, linear read
+    index), then the per-sample tier in stretches of max(1, `_block`) samples
+    (the phase accumulated in order, ring index). A stretch reads all its
+    samples, mixes them, scans each line's damping over 32 chunks (each
+    walked in order, lane 0's from the line's state, the chunks' maps
+    composed as the shuffles compose them) and then writes."""
     T = x.dtype.type
     lines, fst = lines.copy(), fst.copy()
     L, B, n = rv.line_len, rv._block, x.shape[-1]
     nb = n // B if B >= 16 else 0
     y = np.empty_like(x)
     two_pi, dph = T(2 * np.pi), T(2 * np.pi * rv.mod_rate / rv.sample_rate)
+    dph_block = T(2 * np.pi * rv.mod_rate / rv.sample_rate * B)
     base, fbg = rv.base_delays.astype(T), rv.feedback_gains.astype(T)
     off = (2 * np.pi * np.arange(8) / 8).astype(T)
     had = rv.hadamard.astype(T)
-    lfo = T(lfo)
-    for k in range(n):
-        blocked = k < nb * B
-        t = k % B
+    da = T(rv.damp)
+    pw = np.array([np.float64(da) ** k for k in range(33)]).astype(T)
+    state = {"lfo": T(lfo), "fst": fst}
+
+    def stretch(k0, ln, blocked):
+        t = np.arange(ln)
+        wn = step + k0 + t
+        lfo = state["lfo"]
         if blocked:
-            if t == 0:
-                lfo_b = lfo
-                lfo = _pymod(lfo + T(2 * np.pi * rv.mod_rate / rv.sample_rate * B),
-                             two_pi)
-            ph = _pymod(lfo_b + dph * T(t), two_pi)
+            ph = np.array([_pymod(lfo + dph * T(u), two_pi) for u in t], T)
+            state["lfo"] = _pymod(lfo + dph_block, two_pi)
         else:
-            ph = lfo
-            lfo = _pymod(lfo + dph, two_pi)
-        wn = step + k
-        d = np.empty((x.shape[0], 8), T)
+            ph = np.empty(ln, T)
+            for u in range(ln):
+                ph[u] = lfo
+                lfo = _pymod(lfo + dph, two_pi)
+            state["lfo"] = lfo
+        d = np.empty((x.shape[0], 8, ln), T)
         for i in range(8):
             m = T(0.5) * (T(1) + np.sin(ph + off[i]))
-            pos = (T(L + t) if blocked else T(wn % L)) - (base[i] + T(rv.mod_depth) * m)
+            dl = base[i] + T(rv.mod_depth) * m
+            pos = ((L + t).astype(T) if blocked else (wn % L).astype(T)) - dl
             fl = np.floor(pos)
             frac = pos - fl
             if blocked:
-                r0, r1 = (wn - t + int(fl)) % L, (wn - t + int(fl) + 1) % L
+                r0 = (wn - t + fl.astype(np.int64)) % L
+                r1 = (r0 + 1) % L
             else:
-                r0 = int(fl) % L
+                r0 = fl.astype(np.int64) % L
                 r1 = (r0 + 1) % L
             d[:, i] = lines[:, i, r0] * (T(1) - frac) + lines[:, i, r1] * frac
         total = d[:, 0].copy()
         for i in range(1, 8):
             total = total + d[:, i]
-        y[:, k] = x[:, k] * T(rv.dry) + (total * T(rv.gain)) * T(rv.wet)
-        omd = T(1.0 - rv.damp) if blocked else T(1) - T(rv.damp)
+        y[:, k0:k0 + ln] = x[:, k0:k0 + ln] * T(rv.dry) + (total * T(rv.gain)) * T(rv.wet)
+        f = np.empty_like(d)
         for i in range(8):
-            f = had[i, 0] * d[:, 0]
+            f[:, i] = had[i, 0] * d[:, 0]
             for j in range(1, 8):
-                f = f + had[i, j] * d[:, j]
-            fst[:, i] = f * omd + fst[:, i] * T(rv.damp)
-            lines[:, i, wn % L] = inp[:, k] * T(rv.gain) + fst[:, i] * fbg[i]
-    return lines, fst, lfo, y
+                f[:, i] = f[:, i] + had[i, j] * d[:, j]
+        omd = T(1.0 - rv.damp) if blocked else T(1) - T(rv.damp)
+        lc = -(-ln // 32)
+        e = np.zeros(f.shape[:2] + (32,), T)
+        P = np.ones(32, T)
+        for lane in range(32):
+            t0, t1 = min(ln, lane * lc), min(ln, lane * lc + lc)
+            z = state["fst"] if lane == 0 else np.zeros(f.shape[:2], T)
+            for u in range(t0, t1):
+                z = f[..., u] * omd + z * da
+                f[..., u] = z
+            e[..., lane], P[lane] = z, T(0) if lane == 0 else pw[t1 - t0]
+        o = 1
+        while o < 32:
+            e2, P2 = e.copy(), P.copy()
+            for lane in range(o, 32):
+                e2[..., lane] = P[lane] * e[..., lane - o] + e[..., lane]
+                P2[lane] = P[lane] * P[lane - o]
+            e, P, o = e2, P2, 2 * o
+        for lane in range(1, 32):
+            for u in range(min(ln, lane * lc), min(ln, lane * lc + lc)):
+                f[..., u] = f[..., u] + pw[u - lane * lc + 1] * e[..., lane - 1]
+        state["fst"] = e[..., 31]
+        for i in range(8):
+            lines[:, i, wn % L] = inp[:, k0:k0 + ln] * T(rv.gain) + f[:, i] * fbg[i]
+
+    for b in range(nb):
+        stretch(b * B, B, True)
+    S = max(1, rv._block)
+    for k0 in range(nb * B, n, S):
+        stretch(k0, min(S, n - k0), False)
+    return lines, state["fst"], state["lfo"], y
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -218,24 +263,101 @@ def test_numpy_models_of_the_kernels_match_the_plain_versions(dtype):
     assert snr_db(l_p.numpy(), l_m) >= bar
 
 
-def test_cpu_gradient_matches_jax():
+R3_CASES = {"one_block": (SR, 1024), "blocks_and_tail": (SR, 2200),
+            "chain_call": (SR, 512), "tiny_delays": (400.0, 100)}
+
+
+R3_STEP, R3_LFO = 77, 5.9
+
+
+def _r3_inputs(case):
+    """A case's sample rate and random state and input (float64)."""
+    sr, n = R3_CASES[case]
+    rng = np.random.default_rng(30)
+    rv = FDNReverb(sr)
+    lines0 = 0.3 * rng.standard_normal((C, 8, rv.line_len))
+    fst0 = 0.05 * rng.standard_normal((C, 8))
+    return sr, lines0, fst0, rng.standard_normal((C, n))
+
+
+@functools.lru_cache(maxsize=None)
+def _r3_jax():
+    """The JAX FDNReverb's output and lines (float64) for every R3 case,
+    all from one jit."""
+    fdns, states, xs = {}, {}, {}
+    for case in R3_CASES:
+        sr, lines0, fst0, x0 = _r3_inputs(case)
+        fdns[case] = JFDN(sr, damp=0.45, mod_rate_hz=0.7)
+        states[case] = {"lines": jnp.asarray(lines0),
+                        "pre": jnp.zeros((C, fdns[case].pre_len)),
+                        "filter": jnp.asarray(fst0),
+                        "lfo_phase": jnp.float64(R3_LFO),
+                        "step": jnp.int32(R3_STEP)}
+        xs[case] = jnp.asarray(x0)
+    out = ref_jit(lambda st, x: {c: fdns[c].process(st[c], x[c]) for c in R3_CASES})(
+        states, xs)
+    return {c: (np.asarray(out[c][1]), np.asarray(out[c][0]["lines"]))
+            for c in R3_CASES}
+
+
+@pytest.mark.parametrize("case", list(R3_CASES))
+def test_r3_stretch_model_matches_plain_and_jax(case):
+    """R3's stretch schedule (the NumPy model of csrc/feedback.cu::
+    fdn_kernel) from a random state: one whole block, two blocks and a
+    152-sample per-sample tail, the chain's 512-sample call in one
+    per-sample stretch, and a configuration whose shortest line (14
+    samples at 400 Hz) gives no blocked tier and 11-sample stretches. The
+    model against the plain version (float64 and float32) and against the
+    jitted JAX FDNReverb's output and lines (float64)."""
+    sr, lines0, fst0, x0 = _r3_inputs(case)
+    rv = FDNReverb(sr, damp=0.45, mod_rate_hz=0.7)
+    step, lfo = R3_STEP, R3_LFO
+    for dtype in ("float64", "float32"):
+        T = getattr(np, dtype)
+        td = getattr(torch, dtype)
+        lines, fst, x = lines0.astype(T), fst0.astype(T), x0.astype(T)
+        _, inp = rv._apply_pre_delay(torch.zeros(C, rv.pre_len, dtype=td),
+                                     torch.tensor(step), torch.as_tensor(x))
+        l_m, f_m, lfo_m, y_m = _r3_model(rv, lines, fst, lfo, step, x,
+                                         inp.numpy())
+        l_p, f_p, lfo_p, _, y_p = feedback.fdn_feedback_plain(
+            rv, torch.as_tensor(lines), torch.as_tensor(fst),
+            torch.tensor(lfo, dtype=td), torch.tensor(step, dtype=torch.int32),
+            torch.as_tensor(x), inp)
+        bar = 200.0 if dtype == "float64" else 100.0
+        assert float(lfo_p) == float(lfo_m), dtype
+        for got, want in ((y_m, y_p), (l_m, l_p), (f_m, f_p)):
+            assert snr_db(want.numpy(), got) >= bar, dtype
+        if dtype == "float64":
+            y64, l64 = y_m, l_m
+    yj, lj = _r3_jax()[case]
+    assert snr_db(yj, y64) >= 200
+    assert snr_db(lj, l64) >= 200
+
+
+GRAD_CASES = {
+    "delay": (lambda: Delay(SR, delay_seconds=0.004, feedback=0.6),
+              lambda: JDelay(SR, delay_seconds=0.004, feedback=0.6), 600),
+    "freeverb": (Freeverb, JFreeverb, 300),
+    "fdn": (lambda: FDNReverb(SR), lambda: JFDN(SR), 1100),
+}
+
+
+@pytest.mark.parametrize("effect", list(GRAD_CASES))
+def test_cpu_gradient_matches_jax(effect):
     """On the CPU autograd runs through the plain versions, as jax.grad
     runs through the scans: d sum(y * w) / dx for each effect."""
-    for make_t, make_j, n in (
-            (lambda: Delay(SR, delay_seconds=0.004, feedback=0.6),
-             lambda: JDelay(SR, delay_seconds=0.004, feedback=0.6), 600),
-            (Freeverb, JFreeverb, 300),
-            (lambda: FDNReverb(SR), lambda: JFDN(SR), 1100)):
-        x = _x(n, 11)
-        w = np.random.default_rng(12).standard_normal(x.shape)
-        ft, fj = make_t(), make_j()
-        xt = torch.tensor(x, requires_grad=True)
-        _, y = ft.process(ft.init_state((C,), torch.float64, "cpu"), xt)
-        (y * torch.as_tensor(w)).sum().backward()
-        st0 = fj.init_state((C,), jnp.float64)
-        g = jax.jit(jax.grad(lambda xx: jnp.sum(fj.process(st0, xx)[1] * w)))(
-            jnp.asarray(x))
-        assert snr_db(np.asarray(g), xt.grad.numpy()) >= 200
+    make_t, make_j, n = GRAD_CASES[effect]
+    x = _x(n, 11)
+    w = np.random.default_rng(12).standard_normal(x.shape)
+    ft, fj = make_t(), make_j()
+    xt = torch.tensor(x, requires_grad=True)
+    _, y = ft.process(ft.init_state((C,), torch.float64, "cpu"), xt)
+    (y * torch.as_tensor(w)).sum().backward()
+    st0 = fj.init_state((C,), jnp.float64)
+    g = ref_jit(jax.grad(lambda xx: jnp.sum(fj.process(st0, xx)[1] * w)))(
+        jnp.asarray(x))
+    assert snr_db(np.asarray(g), xt.grad.numpy()) >= 200
 
 
 def test_validation_errors():

@@ -15,6 +15,8 @@ against the float64 reference, >= 100 dB for signal gradients and
 A-weighting, so the flagship) are held in float64 only.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import dataclasses
 
 import numpy as np
@@ -36,6 +38,7 @@ from algodsp_tpu_torch.effects.dynamics import core as dyn_core
 from algodsp_tpu_torch.filters import BiquadChain
 from algodsp_tpu_torch.ops import biquad_cascade as bq, envscan, fdlconv
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 DT = {"float32": torch.float32, "float64": torch.float64}
@@ -60,7 +63,7 @@ def test_cascade_grad_matches_jax_blocked(dtype, rng):
     x = rng.standard_normal((3, 700))
     w = rng.standard_normal((3, 700))
     j_chain = JChain(sos, gain=0.7)
-    g_ref = jax.jit(jax.grad(lambda v: jnp.sum(
+    g_ref = ref_jit(jax.grad(lambda v: jnp.sum(
         j_chain.process(v, mode="blocked") * w)))(jnp.asarray(x))
     chain = convert.biquad_chain_from_numpy(sos, 0.7)
     xt = _t(x, DT[dtype], grad=True)
@@ -109,7 +112,7 @@ def test_envelope_grad_matches_jax(case, rng):
         ef, tr = j_envelope(t, e0, a, r)
         return jnp.sum(tr * w) + jnp.sum(ef * v)
 
-    g_ref = jax.jit(jax.grad(j_loss, argnums=(0, 1, 2, 3)))(
+    g_ref = ref_jit(jax.grad(j_loss, argnums=(0, 1, 2, 3)))(
         *(jnp.asarray(a) for a in (t, e0, att, rel)))
     args = [_t(a, grad=True) for a in (t, e0, att, rel)]
     ef, tr = envscan.envelope_scan(*args)
@@ -213,7 +216,7 @@ def test_fdl_grad_matches_jax_fftconvolve(dtype, rng):
     a = rng.standard_normal((2, n))
     b = rng.standard_normal(m) * np.exp(-np.arange(m) / 400.0)
     w = rng.standard_normal((2, n + m - 1))
-    ga, gb = jax.jit(jax.grad(lambda a, b: jnp.sum(j_fftconvolve(a, b) * w),
+    ga, gb = ref_jit(jax.grad(lambda a, b: jnp.sum(j_fftconvolve(a, b) * w),
                               argnums=(0, 1)))(jnp.asarray(a), jnp.asarray(b))
     at, bt = _t(a, DT[dtype], grad=True), _t(b, DT[dtype], grad=True)
     y = _fdl_fftconvolve(at, bt, B)
@@ -294,7 +297,7 @@ def test_flagship_grad_matches_jax(rng):
         y = reverb.process(y)
         return jnp.mean(y * y)
 
-    gx_ref, gg_ref = jax.jit(jax.grad(j_loss, argnums=(0, 1)))(
+    gx_ref, gg_ref = ref_jit(jax.grad(j_loss, argnums=(0, 1)))(
         jnp.asarray(x), jnp.float64(0.8))
     pipe = convert.flagship_from_numpy({
         "cascade": {"sos": cascade.sos, "gain": cascade.gain},
@@ -356,7 +359,7 @@ def test_prefiltered_compressor_grad_matches_jax(rng):
         _, y = j_comp.process(j_comp.init_state((2,), jnp.float64), x)
         return jnp.mean(y * y)
 
-    g_ref = jax.jit(jax.grad(j_loss))(jnp.asarray(x))
+    g_ref = ref_jit(jax.grad(j_loss))(jnp.asarray(x))
     comp = Compressor(SR, **cfg)
     xt = _t(x, torch.float32, grad=True)
     _, y = comp.process(comp.init_state((2,), torch.float32, "cpu"), xt)

@@ -18,6 +18,8 @@ Tolerances:
   (and cuDNN's TF32 switch, which it does not use): bit-equal.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import functools
 
 import jax
@@ -33,6 +35,7 @@ from algodsp_tpu_torch.filters import hilbert
 from algodsp_tpu_torch import resample
 from algodsp_tpu_torch.ops.biquad_cascade import MAX_SECTIONS
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native library not built")
@@ -89,7 +92,7 @@ def test_hilbert_chains_take_the_cascade_kernel_in_float32():
 @functools.lru_cache(maxsize=None)
 def _jax_hilbert(ncoef):
     """The jitted JAX transformer, shared by the cases of one parity."""
-    return jax.jit(jhil.HilbertTransformer(ncoef, 0.05).process)
+    return ref_jit(jhil.HilbertTransformer(ncoef, 0.05).process)
 
 
 @pytest.mark.parametrize("ncoef,n,dtype", [(7, 2047, "float64"),
@@ -163,7 +166,7 @@ _RATIOS = [(2, 1), (3, 2), (147, 160), (1, 3)]
 def test_resampler_matches_jax(up, down):
     jr, tr = jres.Resampler(up, down), resample.Resampler(up, down)
     x = _x((2, 1000), 26)
-    run = jax.jit(jr.process)
+    run = ref_jit(jr.process)
     y64 = np.asarray(run(jnp.asarray(x)))
     y = tr.process(_t(x))
     assert y.shape == y64.shape
@@ -195,7 +198,7 @@ def test_resampler_stream_matches_golden_and_jax():
     jr = jres.Resampler(4, 3, quality=jres.Quality.FAST)
     x = _x((2, 1200), 27)
     st, js = tr.init_state((2,), torch.float64, "cpu"), jr.init_state((2,), jnp.float64)
-    jstep = jax.jit(jr.process_stream)
+    jstep = ref_jit(jr.process_stream)
     outs, jouts = [], []
     for a, b in ((0, 600), (600, 1200)):
         st, y = tr.process_stream(st, _t(x[:, a:b]))
@@ -219,10 +222,10 @@ def test_resample_helpers_match_jax():
     for name in ("upsample_2x", "downsample_2x"):
         np.testing.assert_allclose(
             getattr(resample, name)(_t(x)).numpy(),
-            np.asarray(jax.jit(getattr(jres, name))(jnp.asarray(x))), atol=1e-10)
+            np.asarray(ref_jit(getattr(jres, name))(jnp.asarray(x))), atol=1e-10)
     np.testing.assert_allclose(
         resample.resample(_t(x), 5, 7, quality=resample.Quality.BEST).numpy(),
-        np.asarray(jax.jit(functools.partial(jres.resample, up=5, down=7,
+        np.asarray(ref_jit(functools.partial(jres.resample, up=5, down=7,
                                              quality=jres.Quality.BEST))(
             jnp.asarray(x))), atol=1e-10)
 

@@ -16,6 +16,8 @@
   whose gradient is the reference's zero: both launch under autograd.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import ast
 import os
 import subprocess

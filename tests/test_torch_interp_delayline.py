@@ -8,6 +8,8 @@ JAX float64 no more than 6 dB below JAX float32's own SNR against it;
 the phase trajectories and their reductions bit-equal in float32.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import functools
 
 import jax
@@ -23,6 +25,7 @@ from algodsp_tpu_torch import delayline as tdl
 from algodsp_tpu_torch import interp as tinterp
 from algodsp_tpu_torch.effects.modulation import modulation as tmod
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 MODES = list(tinterp.Mode)
@@ -41,7 +44,7 @@ def test_interp_kernels_match_jax():
     t = rng.uniform(0, 1, 64)
     pts = rng.standard_normal((4, 64))
     for name in ("hermite4", "lagrange4"):
-        jf, tf = getattr(jinterp, name), getattr(tinterp, name)
+        jf, tf = ref_jit(getattr(jinterp, name)), getattr(tinterp, name)
         args = (t, *pts)
         _pair(jf(*map(jnp.asarray, args)), tf(*map(torch.as_tensor, args)),
               jf(*(jnp.asarray(a, jnp.float32) for a in args)),
@@ -52,9 +55,10 @@ def test_interp_kernels_match_jax():
         np.asarray(jinterp.linear2(t, pts[0], pts[1])))
     six = rng.standard_normal((64, 6))
     sixteen = rng.standard_normal((64, 16))
-    assert snr_db(np.asarray(jinterp.lanczos6(t, six)),
+    assert snr_db(np.asarray(ref_jit(jinterp.lanczos6)(t, six)),
                   tinterp.lanczos6(torch.as_tensor(t), torch.as_tensor(six)).numpy()) >= 200
-    assert snr_db(np.asarray(jinterp.sinc_interp(t, sixteen, 8)),
+    assert snr_db(np.asarray(ref_jit(jinterp.sinc_interp, static_argnums=2)(
+                      t, sixteen, 8)),
                   tinterp.sinc_interp(torch.as_tensor(t), torch.as_tensor(sixteen),
                                       8).numpy()) >= 200
     # t = 0 lands on the sinc's removable singularity
@@ -62,7 +66,7 @@ def test_interp_kernels_match_jax():
                                   torch.as_tensor(six[0]))) == pytest.approx(six[0, 2])
     out, st = tinterp.allpass_tick(torch.as_tensor(t), torch.as_tensor(pts[0]),
                                    torch.as_tensor(pts[1]), torch.as_tensor(pts[2]))
-    j_out, _ = jinterp.allpass_tick(t, pts[0], pts[1], pts[2])
+    j_out, _ = ref_jit(jinterp.allpass_tick)(t, pts[0], pts[1], pts[2])
     assert snr_db(np.asarray(j_out), out.numpy()) >= 200 and st is out
     for mode in MODES:
         assert tinterp.points_needed(mode, 6) == jinterp.points_needed(
@@ -80,7 +84,7 @@ def test_fractional_read_matches_jax(mode):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 3, 200))
     pos = rng.uniform(-12.0, 212.0, (2, 3, 150))
-    read = jax.jit(functools.partial(jdl.fractional_read,
+    read = ref_jit(functools.partial(jdl.fractional_read,
                                      mode=jinterp.Mode(mode.value)))
     ref64 = read(jnp.asarray(x), jnp.asarray(pos))
     ref32 = read(jnp.asarray(x, jnp.float32), jnp.asarray(pos, jnp.float32))
@@ -103,7 +107,7 @@ def test_walking_read_matches_jax(mode):
     pos = 900 - 800.0 + np.arange(n) - depth * 0.5 * (1 + np.sin(2 * np.pi * rate
                                                                  * np.arange(n) / SR))
     drift = depth * np.pi * rate / SR
-    read = jax.jit(functools.partial(jdl.walking_read, drift=drift,
+    read = ref_jit(functools.partial(jdl.walking_read, drift=drift,
                                      mode=jinterp.Mode(mode.value)))
     ref64 = read(jnp.asarray(x), jnp.asarray(pos))
     ref32 = read(jnp.asarray(x, jnp.float32), jnp.asarray(pos, jnp.float32))
@@ -118,7 +122,7 @@ def test_delayed_and_delay_line_match_jax():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 600))
     d = 20.0 + 15.0 * np.sin(np.arange(600) / 40.0)
-    jdelayed = jax.jit(functools.partial(jdl.delayed, mode=jinterp.Mode.HERMITE))
+    jdelayed = ref_jit(functools.partial(jdl.delayed, mode=jinterp.Mode.HERMITE))
     for delay in (7.25, d):
         np.testing.assert_allclose(
             tdl.delayed(torch.as_tensor(x), torch.as_tensor(delay),
@@ -131,7 +135,7 @@ def test_delayed_and_delay_line_match_jax():
         sj = jl.init_state((2,), jnp.float64)
         st = tl.init_state((2,), torch.float64, "cpu")
         assert tuple(st.shape) == sj.shape
-        jp = jax.jit(jl.process)
+        jp = ref_jit(jl.process)
         for a, b in ((0, 200), (200, 400), (400, 600)):
             sj, yj = jp(sj, jnp.asarray(x[:, a:b]), jnp.asarray(d[a:b]))
             st, yt = tl.process(st, torch.as_tensor(x[:, a:b]), torch.as_tensor(d[a:b]))

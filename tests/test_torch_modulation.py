@@ -14,6 +14,8 @@ accumulate in float32 as in the reference); gradients in float64 >= 200
 dB; the goldens at tests/test_native.py's bars (> 120 dB).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from algodsp_tpu.ops import linrec as jlinrec
 from algodsp_tpu_torch.effects import modulation as tmod
 from algodsp_tpu_torch.ops import linrec
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C = 2
@@ -59,7 +62,7 @@ def _check(name, kw, seed=0, scale=0.5):
     """Both packages streamed in CUTS: float64 >= 200 dB and states within
     1e-10 (integers equal); float32 within 6 dB of JAX float32's class."""
     fj, ft = getattr(jmod, name)(SR, **kw), getattr(tmod, name)(SR, **kw)
-    jp = jax.jit(fj.process)
+    jp = ref_jit(fj.process)
     x = _x(CUTS[-1], seed, scale=scale)
     sj, yj = _stream(fj, jp, x, "float64", "jax")
     st, yt = _stream(ft, ft.process, x, "float64", "torch")
@@ -118,7 +121,7 @@ def test_phaser_arbitrary_initial_state():
           "fb": rng.standard_normal(3), "phase": np.float64(1.1)}
     x = rng.standard_normal((3, 257))
     to_t = lambda d: {k: torch.as_tensor(v) for k, v in d.items()}
-    _, y_j = jax.jit(jph.process)({k: jnp.asarray(v) for k, v in st.items()},
+    _, y_j = ref_jit(jph.process)({k: jnp.asarray(v) for k, v in st.items()},
                                   jnp.asarray(x))
     for n in (257, 1):
         s1, y1 = ph.process(to_t(st), torch.as_tensor(x[:, :n]))
@@ -139,7 +142,7 @@ def test_frequency_shifter_matches_jax():
     swaps the two outputs (the reference's carrier runs at |shift|)."""
     x = _x(CUTS[-1], 4)
     fj = jmod.FrequencyShifter(SR, shift_hz=100.0)
-    jp = jax.jit(lambda s, v: (lambda o: (o[0], jnp.stack(o[1])))(fj.process(s, v)))
+    jp = ref_jit(lambda s, v: (lambda o: (o[0], jnp.stack(o[1])))(fj.process(s, v)))
     for dtype in ("float64", "float32"):
         _, yj = _stream(fj, jp, x.astype(dtype), dtype, "jax")
         if dtype == "float64":
@@ -170,7 +173,7 @@ def test_plain_affine_scans_match_jax():
     cases = [(jlinrec.affine2_scan, linrec.affine2_scan, (A2, w2, s2)),
              (jlinrec.affine_scan_nd, linrec.affine_scan_nd, (And, wnd, snd))]
     for jf, tf, args in cases:
-        jf = jax.jit(jf)
+        jf = ref_jit(jf)
         ref = [np.asarray(v) for v in jf(*map(jnp.asarray, args))]
         got = tf(*map(torch.as_tensor, args))
         for r, g in zip(ref, got):
@@ -197,7 +200,7 @@ def test_gradients_match_jax():
             _, y = fj.process(fj.init_state((C,), jnp.float64), v)
             return jnp.sum(y * wt)
 
-        g_ref = np.asarray(jax.jit(jax.grad(j_loss))(jnp.asarray(x)))
+        g_ref = np.asarray(ref_jit(jax.grad(j_loss))(jnp.asarray(x)))
         xt = torch.as_tensor(x).requires_grad_()
         _, y = ft.process(ft.init_state((C,), torch.float64, "cpu"), xt)
         torch.sum(y * torch.as_tensor(wt)).backward()

@@ -14,6 +14,8 @@ plain version's own float32 reading against float64 where that is lower
 (the bars chip_smoke.py holds the kernels to).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ Tolerances:
   that case.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from algodsp_tpu.filters.moog import MoogFilter as JMoog, MoogVariant as JV
 from algodsp_tpu_torch import convert
 from algodsp_tpu_torch.filters.moog import MoogFilter as TMoog, MoogVariant as TV
 from algodsp_tpu_torch.ops import moog as moog_ops
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, N = 3, 200          # os 4 makes 800 ladder steps: not a chunk multiple
@@ -40,7 +43,7 @@ def _jax_process(mg, state, x):
     if os > 1:
         x = jnp.zeros(x.shape[:-1] + (x.shape[-1] * os,), x.dtype
                       ).at[..., ::os].set(x * os)
-    state, y = jax.jit(mg._run_scan)(state, x)
+    state, y = ref_jit(mg._run_scan)(state, x)
     return state, (y[..., os - 1::os] if os > 1 else y)
 
 

@@ -25,6 +25,8 @@ Tolerances (SNR of a gradient against the reference's):
   1e-6 (float32) times max |dx|.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,7 @@ import torch
 from algodsp_tpu.filters.moog import MoogFilter as JMoog, MoogVariant as JV
 from algodsp_tpu_torch.filters.moog import MoogFilter as TMoog, MoogVariant as TV
 from algodsp_tpu_torch.ops import moog as moog_ops
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C = 3
@@ -77,7 +80,7 @@ def _jax_grads(jm, x, st, w, ws):
         return jnp.sum(y * wy) + sum(jnp.sum(state[k] * wst[k]) for k in KEYS)
 
     as_j = lambda d: {k: jnp.asarray(v) for k, v in d.items()}
-    gs, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+    gs, gx = ref_jit(jax.grad(loss, argnums=(0, 1)))(
         as_j(st), jnp.asarray(x), jnp.asarray(w), as_j(ws))
     return {k: np.asarray(v) for k, v in gs.items()}, np.asarray(gx)
 

@@ -18,6 +18,8 @@ Tolerances:
   bars (only the tanh implementations and the order of sums differ).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ import torch
 from algodsp_tpu.filters.moog import MoogFilter as JMoog, MoogVariant as JV
 from algodsp_tpu_torch.filters.moog import MoogFilter as TMoog, MoogVariant as TV
 from algodsp_tpu_torch.ops import moog as moog_ops
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C = 33                  # two blocks of 32 lanes, the second one padded
@@ -274,7 +277,7 @@ def test_record_route_grad_matches_jax():
         state, y = jm.process(state, xv)
         return jnp.sum(y * w) + jnp.sum(state["stage"] * w_stage)
 
-    gs_j, gx_j = jax.jit(jax.grad(j_loss, argnums=(0, 1)))(
+    gs_j, gx_j = ref_jit(jax.grad(j_loss, argnums=(0, 1)))(
         {k: jnp.asarray(v) for k, v in st.items()}, jnp.asarray(x))
     for dtype, bar in ((torch.float64, 200.0), (torch.float32, 80.0)):
         xt = torch.tensor(x, dtype=dtype, requires_grad=True)

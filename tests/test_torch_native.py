@@ -15,6 +15,8 @@ atol 1e-12 for the FIR and the envelope, > 120 dB for Moog, dynamics,
 the reverbs and the delay.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import dataclasses
 
 import numpy as np

@@ -7,6 +7,8 @@ channel — the bar the JAX package holds its fused FDL kernel to
 fold is host float64 NumPy in both packages and must agree to 1e-12.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import numpy as np
 import jax.numpy as jnp
 import pytest

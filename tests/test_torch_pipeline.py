@@ -8,6 +8,8 @@ biquad and compressor stages, the loosest on the path) and per-channel
 power within 1e-5 relative.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import dataclasses
 
 import numpy as np
@@ -23,6 +25,7 @@ from algodsp_tpu_torch import convert
 from algodsp_tpu_torch.pipeline import (
     FoldedPipeline, flagship_params, folded_params)
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C, N, TAPS = 4, 8192, 4096
@@ -45,7 +48,7 @@ def test_flagship_matches_jax_entry_forward():
     reverb = JConv(_ir(8000.0), min_block_order=10)
     x = _x()
 
-    @jax.jit
+    @ref_jit
     def forward(x, comp_state):
         y = weighting.process(cascade.process(x))
         _, y = comp.process(comp_state, y)

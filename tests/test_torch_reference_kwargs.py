@@ -5,6 +5,8 @@ call with it returns exactly what the call without it returns (equal,
 bit for bit), on small inputs made from a seed, on the CPU.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import json
 
 import numpy as np

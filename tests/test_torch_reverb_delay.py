@@ -8,6 +8,8 @@ JAX float64, no more than 6 dB below JAX float32's own SNR against JAX
 float64 (the reference's float32 class).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from algodsp_tpu_torch.effects.delay_effect import Delay
 from algodsp_tpu_torch.effects.reverb import FDNReverb, Freeverb
 from algodsp_tpu_torch.ops import ring
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C = 2
@@ -61,7 +64,7 @@ def _stream(proc, st, x, cuts, lib):
 def _run_both(make_j, make_t, x, cuts, dtype, jproc=None, tproc=None):
     """Stream x through both packages in the same ragged calls."""
     fj, ft = make_j(), make_t()
-    jp = jax.jit(jproc(fj) if jproc else fj.process)
+    jp = ref_jit(jproc(fj) if jproc else fj.process)
     tp = tproc(ft) if tproc else ft.process
     sj, yj = _stream(jp, fj.init_state((C,), jnp.dtype(dtype)),
                      jnp.asarray(x), cuts, "jax")
@@ -183,7 +186,7 @@ def test_state_across_ragged_calls_equals_one_call(effect):
                       torch.as_tensor(x), [0, 1, 130, 611, 1024, 1500, n], "torch")
     assert snr_db(y1.numpy(), y2) >= 200
     fj = make_j()
-    sj, yj = jax.jit(fj.process)(fj.init_state((C,), jnp.float64), jnp.asarray(x))
+    sj, yj = ref_jit(fj.process)(fj.init_state((C,), jnp.float64), jnp.asarray(x))
     assert snr_db(np.asarray(yj), y2) >= 200
     sj = _jstate(sj)
     st1 = {k: (list(map(np.asarray, v)) if isinstance(v, list) else np.asarray(v))

@@ -18,6 +18,8 @@ Tolerances:
   `torch.set_float32_matmul_precision("medium")`: bit-equal.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import functools
 
 import jax
@@ -30,6 +32,7 @@ from algodsp_tpu import spectrum as jspec
 from algodsp_tpu_torch import spectrum
 from algodsp_tpu_torch.window import WindowType
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 
@@ -60,7 +63,7 @@ def test_bin_helpers_match_jax():
     tb = _t(bins)
     for name in ("magnitude", "power", "phase"):
         np.testing.assert_allclose(getattr(spectrum, name)(tb).numpy(),
-                                   np.asarray(jax.jit(getattr(jspec, name))(bins)),
+                                   np.asarray(ref_jit(getattr(jspec, name))(bins)),
                                    atol=1e-12)
     re, im = bins.real, bins.imag
     for name in ("magnitude_from_parts", "power_from_parts"):
@@ -70,7 +73,7 @@ def test_bin_helpers_match_jax():
     ph = np.cumsum(rng.uniform(-3.0, 3.0, (3, 200)), axis=-1)
     wrapped = np.angle(np.exp(1j * ph))
     uw = spectrum.unwrap_phase(_t(wrapped)).numpy()
-    np.testing.assert_allclose(uw, np.asarray(jax.jit(jspec.unwrap_phase)(wrapped)),
+    np.testing.assert_allclose(uw, np.asarray(ref_jit(jspec.unwrap_phase)(wrapped)),
                                atol=1e-10)
     np.testing.assert_allclose(uw, np.unwrap(wrapped), atol=1e-9)
     np.testing.assert_allclose(
@@ -87,7 +90,7 @@ def test_bin_helpers_match_jax():
     v = rng.uniform(0.0, 1.0, (2, 257))
     np.testing.assert_allclose(
         spectrum.smooth_fractional_octave(_t(freqs), _t(v), 3).numpy(),
-        np.asarray(jax.jit(jspec.smooth_fractional_octave, static_argnums=2)(
+        np.asarray(ref_jit(jspec.smooth_fractional_octave, static_argnums=2)(
             freqs, v, 3)), atol=1e-12)
     with pytest.raises(ValueError):
         spectrum.group_delay_from_phase(_t(uw[..., :1]), 512)
@@ -164,7 +167,7 @@ def test_goertzel_streaming_matches_one_shot():
                                np.asarray(jg.power_db(js)), rtol=1e-10)
 
 
-_JSTFT = {(f, h): jax.jit(functools.partial(jspec.stft, frame_size=f,
+_JSTFT = {(f, h): ref_jit(functools.partial(jspec.stft, frame_size=f,
                                             hop_size=h))
           for f, h in ((256, 64), (512, 192))}
 
@@ -179,7 +182,7 @@ def test_stft_istft_match_jax(frame, hop):
     spec_t = spectrum.stft(_t(x), frame, hop)
     assert spec_t.shape == spec_j.shape
     assert _csnr(spec_j, spec_t.numpy()) >= 200
-    y_j = np.asarray(jax.jit(functools.partial(jspec.istft, hop_size=hop,
+    y_j = np.asarray(ref_jit(functools.partial(jspec.istft, hop_size=hop,
                                                length=3000))(jnp.asarray(spec_j)))
     y_t = spectrum.istft(spec_t, hop, length=3000).numpy()
     assert snr_db(y_j, y_t) >= 200
@@ -199,11 +202,11 @@ def test_istft_rectangular_hop_equals_frame_and_center_off():
     spec = spectrum.stft(_t(x), 256, 256, window=WindowType.RECTANGULAR)
     y = spectrum.istft(spec, 256, window=WindowType.RECTANGULAR, length=1000)
     assert np.abs(y.numpy() - x).max() < 2e-5
-    sj = jax.jit(functools.partial(jspec.stft, frame_size=256, hop_size=128,
+    sj = ref_jit(functools.partial(jspec.stft, frame_size=256, hop_size=128,
                                    center=False))(jnp.asarray(x, jnp.float64))
     st = spectrum.stft(_t(x, torch.float64), 256, 128, center=False)
     assert _csnr(np.asarray(sj), st.numpy()) >= 200
-    yj = np.asarray(jax.jit(functools.partial(
+    yj = np.asarray(ref_jit(functools.partial(
         jspec.istft, hop_size=128, center=False, length=1200))(sj))
     yt = spectrum.istft(st, 128, center=False, length=1200).numpy()
     assert snr_db(yj, yt) >= 200 and yt.shape == (3, 1200)
@@ -218,7 +221,7 @@ def test_streaming_stft_istft_match_jax():
     x = rng.standard_normal((2, 4096))
     ana, syn = spectrum.StreamingSTFT(512, 128), spectrum.StreamingISTFT(512, 128)
     jana, jsyn = jspec.StreamingSTFT(512, 128), jspec.StreamingISTFT(512, 128)
-    j_ana, j_syn = jax.jit(jana.process), jax.jit(jsyn.process)
+    j_ana, j_syn = ref_jit(jana.process), ref_jit(jsyn.process)
     for dtype, jdt in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
         sa, ss = ana.init_state((2,), dtype, "cpu"), syn.init_state((2,), dtype, "cpu")
         ja, js = jana.init_state((2,), jdt), jsyn.init_state((2,), jdt)
@@ -239,7 +242,7 @@ def test_streaming_stft_istft_match_jax():
         if dtype == torch.float64:
             assert snr_db(np.concatenate(jouts, -1), got) >= 200
         padded = np.concatenate([np.zeros((2, lag)), x], -1)
-        ref = np.asarray(jax.jit(functools.partial(
+        ref = np.asarray(ref_jit(functools.partial(
             jspec.stft, frame_size=512, hop_size=128, center=False))(
                 jnp.asarray(padded, jdt)))
         fr_all = torch.cat(frames, dim=-2).numpy()
@@ -254,7 +257,7 @@ def test_spectrogram_matches_jax():
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 4000))
     x[1] = 0.0
-    ref = np.asarray(jax.jit(functools.partial(
+    ref = np.asarray(ref_jit(functools.partial(
         jspec.spectrogram, frame_size=512, hop_size=128))(jnp.asarray(x)))
     got = spectrum.spectrogram(_t(x), 512, 128).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-9)
@@ -275,7 +278,7 @@ def test_mel_filterbank_spectrogram_mfcc_match_jax():
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 6000))
     kw = dict(n_mels=32, frame_size=1024, hop_size=256)
-    jmelspec = jax.jit(lambda v, log: jspec.mel_spectrogram(v, SR, log=log, **kw),
+    jmelspec = ref_jit(lambda v, log: jspec.mel_spectrogram(v, SR, log=log, **kw),
                        static_argnums=1)
     j64 = np.asarray(jmelspec(jnp.asarray(x), True))
     got = spectrum.mel_spectrogram(_t(x), SR, **kw)
@@ -288,7 +291,7 @@ def test_mel_filterbank_spectrogram_mfcc_match_jax():
     _f32_bar(j64, j32, got32.numpy())
     np.testing.assert_allclose(
         spectrum.mfcc(_t(x), SR, n_mfcc=13, **kw).numpy(),
-        np.asarray(jax.jit(lambda v: jspec.mfcc(v, SR, n_mfcc=13, **kw))(
+        np.asarray(ref_jit(lambda v: jspec.mfcc(v, SR, n_mfcc=13, **kw))(
             jnp.asarray(x))), atol=1e-9)
     with pytest.raises(ValueError):
         spectrum.mfcc(_t(x), SR, n_mfcc=40, n_mels=32)

@@ -11,6 +11,8 @@ tests/test_native.py's 120 dB; streamed against one call >= 200 dB
 (float64; ragged blocks take the banded engine's per-section path).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from algodsp_tpu import native
 from algodsp_tpu.effects import vocoder as jv
 from algodsp_tpu_torch.effects import vocoder as tv
 from tests.conftest import snr_db
+from tests.torch_port_setup import meets_float32_bar, ref_jit
 
 SR = 48000.0
 CUTS = (0, 1024, 1500, 3072)
@@ -37,7 +40,7 @@ def _signals(seed=70, c=2):
 def _stream(fx, mod, car, dtype, lib, cuts=CUTS):
     if lib == "jax":
         st, proc, arr = (fx.init_state(mod.shape[:-1], jnp.dtype(dtype)),
-                         jax.jit(fx.process), jnp.asarray)
+                         ref_jit(fx.process), jnp.asarray)
     else:
         st, proc, arr = (fx.init_state(mod.shape[:-1], getattr(torch, dtype), "cpu"),
                          fx.process, torch.as_tensor)
@@ -60,10 +63,10 @@ def test_vocoder_matches_jax(layout):
     for key in ("analysis", "synthesis", "env"):
         np.testing.assert_allclose(st[key].numpy(), np.asarray(sj[key]),
                                    rtol=0, atol=1e-12)
-    _, yj32 = _stream(fj, mod, car, "float32", "jax")
     _, yt32 = _stream(ft, mod, car, "float32", "torch")
     assert yt32.dtype == np.float32
-    assert snr_db(yj, yt32) >= min(100.0, snr_db(yj, yj32) - 6.0)
+    assert meets_float32_bar(
+        snr_db(yj, yt32), lambda: snr_db(yj, _stream(fj, mod, car, "float32", "jax")[1]))
     _, y1 = _stream(ft, mod, car, "float64", "torch", cuts=(0, CUTS[-1]))
     assert snr_db(y1, yt) >= 200
 

@@ -16,6 +16,8 @@ transformer, > 110 dB for the bass exciter, atol 1e-12 for the bit
 crusher).
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from algodsp_tpu import native
 from algodsp_tpu.effects import waveshape as jws
 from algodsp_tpu_torch.effects import waveshape as tws
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 C = 2
@@ -54,7 +57,7 @@ def _stream(fx, proc, x, dtype, lib):
 
 
 def _both(fj, ft, x, dtype):
-    sj, yj = _stream(fj, jax.jit(fj.process), x, dtype, "jax")
+    sj, yj = _stream(fj, ref_jit(fj.process), x, dtype, "jax")
     st, yt = _stream(ft, ft.process, x, dtype, "torch")
     return sj, yj, st, yt
 

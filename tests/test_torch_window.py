@@ -9,6 +9,8 @@ float32 and float64 (one rounding of the same two operands), and
 float32.
 """
 
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
 import dataclasses
 
 import jax.numpy as jnp

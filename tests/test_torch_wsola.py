@@ -4,8 +4,8 @@ search picks (JAX's captured from its own `lax.scan`), the output in
 float64 and float32, the sequential crossfade where the overlap is
 longer than the flat part, the gradient through the segment gather
 against `jax.grad`, the C++ goldens, and a NumPy model of W1's walk
-(the kernel's thread ownership of offsets, tiles of the reference and
-block reduction) against the plain version, with exact ties and NaN.
+(the offsets split across a cluster's blocks, the two-level argmax)
+against the plain version, with exact ties, NaN and silence.
 
 Tolerances: float64 >= 200 dB and the starts exactly equal; float32
 starts equal to JAX's float32 starts on the JAX tests' material
@@ -14,6 +14,10 @@ and the output no more than 6 dB below JAX float32's own SNR against
 JAX float64; the goldens at tests/test_native.py's bars (120 dB, 110 on
 the grid sweep); the gradient >= 200 dB.
 """
+
+import tests.torch_port_setup  # noqa: F401  (first: one PyTorch thread)
+
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +30,7 @@ from algodsp_tpu.effects.pitch import WSOLAPitchShifter as JWSOLA
 from algodsp_tpu_torch.effects.pitch import WSOLAPitchShifter as TWSOLA
 from algodsp_tpu_torch.ops import wsola as w1
 from tests.conftest import snr_db
+from tests.torch_port_setup import ref_jit
 
 SR = 48000.0
 
@@ -56,7 +61,7 @@ def _jax_stretch(monkeypatch, ws, x, rate):
         return y, seen[0]
 
     monkeypatch.setattr(jax.lax, "scan", recording)
-    y, starts = jax.jit(run)(jnp.asarray(x))
+    y, starts = ref_jit(run)(jnp.asarray(x))
     return np.asarray(y), np.asarray(starts)
 
 
@@ -78,7 +83,7 @@ def test_wsola_matches_jax(monkeypatch, semitones):
             y64 = yj
         else:
             assert snr_db(y64, yt.numpy()) >= snr_db(y64, yj) - 6.0
-    y_j = np.asarray(jax.jit(wj.process)(jnp.asarray(x)))
+    y_j = np.asarray(ref_jit(wj.process)(jnp.asarray(x)))
     y_t = wt.process(torch.as_tensor(x)).numpy()
     assert y_t.shape == x.shape and snr_db(y_j, y_t) >= 200
 
@@ -91,7 +96,7 @@ def test_crossfade_with_overlap_longer_than_flat():
     wj, wt = JWSOLA(SR, **kw), TWSOLA(SR, **kw)
     assert wt.overlap > wt.sequence - wt.overlap
     x = _material(12000, seed=3)
-    y_j = np.asarray(jax.jit(wj.process)(jnp.asarray(x)))
+    y_j = np.asarray(ref_jit(wj.process)(jnp.asarray(x)))
     assert snr_db(y_j, wt.process(torch.as_tensor(x)).numpy()) >= 200
 
 
@@ -141,7 +146,7 @@ def test_gradient_through_the_gather_matches_jax():
     ws_j, ws_t = JWSOLA(SR, pitch_ratio=1.25), TWSOLA(SR, pitch_ratio=1.25)
     x = _material(16000, seed=11)
     w = np.random.default_rng(12).standard_normal(x.shape)
-    g_j = np.asarray(jax.jit(jax.grad(
+    g_j = np.asarray(ref_jit(jax.grad(
         lambda v: jnp.sum(ws_j.process(v) * w)))(jnp.asarray(x)))
     xt = torch.tensor(x, requires_grad=True)
     (ws_t.process(xt) * torch.as_tensor(w)).sum().backward()
@@ -162,6 +167,26 @@ def test_search_checks_its_reads():
     np.testing.assert_array_equal(st.numpy(), [[4, 4], [14, 14]])
 
 
+def test_plan_stages_presets_and_tiles_long_windows():
+    """W1's schedule: the music preset and the pitch-time node's defaults
+    fit the staged schedule's shared memory at every rate and in both
+    types; the node's longest windows (overlap 60 ms, search 40 ms) fall
+    to the tiled schedule in float64 from 96 kHz and in float32 at 192
+    kHz. Both keep 8 blocks a channel and one pair of offsets a thread."""
+    presets = {"music": {}, "node": dict(sequence_ms=40.0, overlap_ms=10.0,
+                                         seek_window_ms=15.0),
+               "node_longest": dict(sequence_ms=120.0, overlap_ms=60.0,
+                                    seek_window_ms=40.0)}
+    for rate, (name, kw), itemsize in itertools.product(
+            (48000, 96000, 192000), presets.items(), (4, 8)):
+        ws = TWSOLA(rate, **kw)
+        pb, threads, tiled = w1.plan(ws.seek, ws.overlap, itemsize)
+        assert pb == -(-ws.seek // 8)
+        assert threads - 32 == min(480, -(-pb // 64) * 32)
+        long_one = name == "node_longest" and itemsize * rate >= 8 * 96000
+        assert tiled == long_one, (rate, name, itemsize)
+
+
 # -- a NumPy model of W1's walk ---------------------------------------------------
 
 def _beats(va, ia, vb, ib):
@@ -173,93 +198,134 @@ def _beats(va, ia, vb, ib):
     return va > vb or (va == vb and ia < ib)
 
 
+def _butterfly(pairs):
+    """A warp's xor-shuffle reduction of up to 32 (value, index, loud)
+    triples (missing lanes hold -inf, INT_MAX, 0): every lane's result."""
+    lanes = list(pairs) + [(-np.inf, np.iinfo(np.int32).max, False)] * (32 - len(pairs))
+    for off in (16, 8, 4, 2, 1):
+        nxt = []
+        for lane in range(32):
+            (v, i, ld), (ov, oi, old) = lanes[lane], lanes[lane ^ off]
+            if _beats(ov, oi, v, i):
+                v, i = ov, oi
+            nxt.append((v, i, ld or old))
+        lanes = nxt
+    return lanes[0]
+
+
 def _w1_model(x2, csq, region_starts, boundary, ov, seek, flat, tail0,
-              threads=256, per=8, tile=128):
-    """csrc/wsola.cu step by step: thread t holds offsets kb + t + r *
-    threads of each chunk of threads * per, sums its products over the
-    reference's tiles in order of j, keeps its best (value, index), then
-    the shuffle-down tree of each warp and warp 0's walk over the warps'
-    results."""
+              threads=None):
+    """csrc/wsola.cu step by step: block r of a channel's cluster scores
+    offsets [r pb, (r + 1) pb), summing thread t (all but the last warp,
+    which copies) the groups of GROUP consecutive offsets t, t + threads -
+    32, ... of its share, each sum in order of j from the window the last
+    start landed in; each summing warp's shuffle reduction of its lanes'
+    pairs, pushed into every block's inbox (rank-major), and after the
+    cluster barrier each warp's over its inbox. Boundary segments skip it
+    all. The tiled schedule gives each thread the same offsets (a pass of
+    one pair a thread is the staged schedule's next stride) and carries
+    the sums across its tiles in order of j, so this models both."""
     dt = x2.dtype.type
     eps = dt(1e-12)
-    chunk = threads * per
+    pb, planned, _ = w1.plan(seek, ov, x2.itemsize)
+    threads = threads or planned
     starts = np.zeros((len(region_starts), x2.shape[0]), np.int32)
     for c in range(x2.shape[0]):
         x, q = x2[c], csq[c]
-        tail = tail0
+        win, prev = x[tail0:tail0 + ov], 0
         for s, a in enumerate(region_starts):
-            bv = np.full(threads, -np.inf, x.dtype)
-            bi = np.full(threads, np.iinfo(np.int32).max)
-            loud = np.zeros(threads, bool)
-            for kb in range(0, seek, chunk):
-                width = min(chunk, seek - kb)
-                kk = np.arange(chunk)
-                valid = kk < width
-                acc = np.zeros(chunk, x.dtype)
-                for j0 in range(0, ov, tile):
-                    tj = min(tile, ov - j0)
-                    ref = x[tail + j0:tail + j0 + tj]
-                    reg = x[a + kb + j0:a + kb + j0 + width + tj - 1]
-                    for jj in range(tj):
-                        acc[valid] = acc[valid] + reg[kk[valid] + jj] * ref[jj]
-                for r in range(per):
-                    for t in range(threads):
-                        k_local = t + r * threads
-                        if k_local >= width:
-                            continue
-                        k = kb + k_local
-                        norm2 = q[a + ov + k] - q[a + k]
-                        v = acc[k_local] / np.sqrt(norm2 + eps)
-                        if _beats(v, k, bv[t], bi[t]):
-                            bv[t], bi[t] = v, k
-                        loud[t] |= not (norm2 <= eps)
-            warp_best = []
-            for w0 in range(0, threads, 32):
-                v, i = list(bv[w0:w0 + 32]), list(bi[w0:w0 + 32])
-                for off in (16, 8, 4, 2, 1):
-                    for lane in range(32 - off):
-                        if _beats(v[lane + off], i[lane + off], v[lane], i[lane]):
-                            v[lane], i[lane] = v[lane + off], i[lane + off]
-                warp_best.append((v[0], i[0]))
-            v, i = warp_best[0]
-            for wv, wi in warp_best[1:]:
-                if _beats(wv, wi, v, i):
-                    v, i = wv, wi
-            best = seek // 2 if (not loud.any() or boundary[s]) else i
+            best = seek // 2
+            if not boundary[s]:
+                ref = win[prev:prev + ov]
+                k = np.arange(seek)
+                acc = np.zeros(seek, x.dtype)
+                for j in range(ov):
+                    acc = acc + x[a + k + j] * ref[j]
+                norm2 = q[a + ov + k] - q[a + k]
+                v = acc / np.sqrt(norm2 + eps)
+                published = []
+                for r in range(w1.CLUSTER):
+                    k_lo, k_hi = min(seek, r * pb), min(seek, r * pb + pb)
+                    per_thread = []
+                    for t in range(threads - 32):    # the last warp copies
+                        bv, bi, loud = -np.inf, np.iinfo(np.int32).max, False
+                        for g in range(t, -(-(k_hi - k_lo) // w1.GROUP),
+                                       threads - 32):
+                            for u in range(w1.GROUP):
+                                kk = k_lo + w1.GROUP * g + u
+                                if kk >= k_hi:
+                                    continue
+                                if _beats(v[kk], kk, bv, bi):
+                                    bv, bi = v[kk], kk
+                                loud |= not (norm2[kk] <= eps)
+                        per_thread.append((bv, bi, loud))
+                    published += [_butterfly(per_thread[w:w + 32])
+                                  for w in range(0, threads - 32, 32)]
+                lanes = []      # lane l folds inbox pairs l, l + 32, ... in order
+                for lane in range(min(32, len(published))):
+                    bv, bi, loud = -np.inf, np.iinfo(np.int32).max, False
+                    for pv, pi, pl in published[lane::32]:
+                        if _beats(pv, pi, bv, bi):
+                            bv, bi = pv, pi
+                        loud |= pl
+                    lanes.append((bv, bi, loud))
+                _, i, loud = _butterfly(lanes)
+                if loud:
+                    best = i
             starts[s, c] = a + best
-            tail = a + best + flat
+            win, prev = x[a + flat:a + flat + seek - 1 + ov], best
     return starts
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_w1_walk_model_matches_plain(dtype):
-    """Two chunks of offsets (seek 2100) and three tiles of the reference
-    (ov 300, the last one ragged): the model's starts equal the plain
-    version's; then exact ties (a periodic run of small integers, whose
-    products and energy sums are exact, so offsets a period apart score
-    alike: the lowest index wins) and a NaN (the first NaN score wins)."""
-    ov, seek, flat = 300, 2100, 500
+W1_CASES = {
+    # name: (material, dtype, seek, threads)
+    "float32": ("smooth", "float32", 333, None),
+    "float64": ("smooth", "float64", 333, None),
+    "ties": ("ties", "float32", 333, None),
+    "nan": ("nan", "float32", 333, None),
+    "silent": ("silent", "float32", 333, None),
+    "strided": ("smooth", "float64", 2100, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(W1_CASES))
+def test_w1_walk_model_matches_plain(case):
+    """The model's starts equal the plain version's. seek 333 is no
+    multiple of the cluster's 8 blocks (42 offsets a block, 39 in the
+    last) nor of a warp; the last segment is a boundary one. Ties: a
+    periodic run of small integers, whose products and energy sums are
+    exact, so offsets a period apart score alike and the lowest index
+    wins. NaN: the first NaN score wins. Silent: a channel of zeros takes
+    seek // 2 and a channel silent in one region too. strided: 8 blocks
+    of 263 offsets (the last 259), 132 pairs on 32 summing threads: the
+    first four take five."""
+    material, dtype, seek, threads = W1_CASES[case]
+    ov, flat = 120, 300
+    n = 1200 + seek + flat + ov
     rng = np.random.default_rng(21)
-    n = 9000
-    cases = []
-    smooth = np.stack([np.convolve(rng.standard_normal(n), np.ones(6) / 6,
-                                   mode="same") for _ in range(2)])
-    cases.append(smooth)
-    period = rng.integers(-3, 4, 64).astype(float)
-    cases.append(np.tile(period, (2, n // 64 + 1))[:, :n])
-    nan = smooth.copy()
-    nan[1, 2500] = np.nan
-    cases.append(nan)
-    region_starts = np.array([0, 1200, 2400, 3600], np.int32)
+    x = np.stack([np.convolve(rng.standard_normal(n), np.ones(6) / 6,
+                              mode="same") for _ in range(2)])
+    if material == "ties":
+        period = rng.integers(-3, 4, 64).astype(float)
+        x = np.tile(period, (2, n // 64 + 1))[:, :n]
+    elif material == "nan":
+        x[1, 900] = np.nan
+    elif material == "silent":
+        x[0] = 0.0
+        x[1, 350:1100] = 0.0
+    region_starts = np.array([0, 400, 800, 1200], np.int32)
     boundary = np.array([False, False, False, True])
-    for case, x in enumerate(cases):
-        x2 = torch.as_tensor(x.astype(dtype))
-        csq = w1.energy_prefix(x2)
-        plain = w1.wsola_search(x2, csq, region_starts, boundary, ov, seek,
-                                flat, 40).numpy()
-        model = _w1_model(x2.numpy(), csq.numpy(), region_starts, boundary, ov,
-                          seek, flat, 40)
-        np.testing.assert_array_equal(model, plain, err_msg=f"case {case}")
-        if case == 1:
-            # a tie: the lowest of the offsets a period apart
-            assert np.all((plain[:3] - region_starts[:3, None]) < 64)
+    x2 = torch.as_tensor(x.astype(dtype))
+    csq = w1.energy_prefix(x2)
+    plain = w1.wsola_search(x2, csq, region_starts, boundary, ov, seek, flat,
+                            40).numpy()
+    model = _w1_model(x2.numpy(), csq.numpy(), region_starts, boundary, ov,
+                      seek, flat, 40, threads)
+    np.testing.assert_array_equal(model, plain)
+    np.testing.assert_array_equal(plain[3], region_starts[3] + seek // 2)
+    if material == "ties":
+        # a tie: the lowest of the offsets a period apart
+        assert np.all((plain[:3] - region_starts[:3, None]) < 64)
+    if material == "silent":
+        np.testing.assert_array_equal(plain[:, 0], region_starts + seek // 2)
+        assert plain[1, 1] == region_starts[1] + seek // 2
